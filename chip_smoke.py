@@ -22,16 +22,35 @@ Phases (any failed check raises, and the script exits non-zero):
 6. multigrid -- ``solve_poisson_mg`` at 640^2, batch 4, 12 cycles, kernels on,
    against the DST solve;
 7. profile -- ``torch.profiler`` device time of the served and the refined
-   cascade to 640^2, and the device busy share.
+   cascade to 640^2, and the device busy share;
+8. K1 -- ``kernel_apply_operator`` against its twin at the training path's
+   shapes plus 640^2 and a ragged one, theta scalar and field; the physics
+   loss's autograd backward (K1 on ``theta * g``) against the twin path;
+   device time, time per call, twin, bound and a ``theta * F.conv2d``
+   yardstick at (32, 40, 40) and 640^2;
+9. generate -- the ``generate_data`` CLI at the published counts (1000
+   standard + 1000 subdomain, theta mixed, 64 cascade scenes): the ``.npz``
+   keys, shapes and finiteness, and standard samples against a float64 DST
+   solve of their own f and theta;
+10. train -- the ``train`` CLI with the champion's first-stage recipe
+   (``scripts/rebuild_champion.sh:87-90``; full-width 5-channel BatchNorm
+   U-Net, batch 32, streamed regeneration, physics weight 0.3), cut to 2
+   epochs, with K1's launch count reset just before and read just after
+   (it must be 2 per train step plus 1 per validation chunk); the checkpoints
+   load into a U-Net; one step's loss and gradients with K1 and with the twin
+   agree; a warm step's time, a profiler split by kernel class and the device
+   busy share.
 
-Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power-limit line
-and, last, ``{"ok": true, "device": {...}}``. Without a CUDA device it exits
-with an error before printing any result. It imports nothing of JAX.
+Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
+``nvidia-smi`` name/power-limit line and, last, ``{"ok": true, "device":
+{...}}``. Without a CUDA device it exits with an error before printing any
+result. It imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -75,7 +94,8 @@ def time_ms(fn, reps: int = 100) -> float:
 def profile(fn, reps: int = 1):
     """``fn`` under ``torch.profiler`` after a warm call: (wall ms per rep under
     the profiler, device kernel ms per rep, [(kernel, ms per rep, launches per
-    rep)] by device time)."""
+    rep)] by device time). Ranges annotated on the device (the optimizer's
+    step) are left out: their kernels are counted on their own."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -90,21 +110,43 @@ def profile(fn, reps: int = 1):
         wall = (time.perf_counter() - t0) * 1e3 / reps
     rows = [(e.key, e.self_device_time_total / 1e3 / reps, e.count / reps)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)]
     rows.sort(key=lambda r: -r[1])
     return wall, sum(r[1] for r in rows), rows
+
+
+K1_NAME, K2_NAME, K3_NAME = "stencil_kernel<false>", "stencil_kernel<true>", "jacobi_kernel"
 
 
 def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its name."""
     low = name.lower()
-    if "residual_kernel" in low or "jacobi_kernel" in low:
+    if K1_NAME in low:
+        return "stencil K1"
+    if K2_NAME in low or K3_NAME in low:
         return "stencil (K2/K3)"
-    if any(k in low for k in ("fprop", "conv", "fft", "winograd", "mult_and_sum")):
-        return "convolution (cuDNN)"
+    if any(k in low for k in ("fprop", "dgrad", "wgrad", "conv", "fft", "winograd",
+                              "mult_and_sum", "cudnn", "cf32")):  # cf32: FFT convolution's
+        return "convolution (cuDNN)"                               # complex products
     if "gemm" in low or "cutlass" in low:
-        return "matmul (cuBLAS)"
+        return "matmul (cuBLAS: resize, solver)"
+    if any(k in low for k in ("adam", "foreach", "multi_tensor")):
+        return "optimizer"
     return "other (elementwise, norm, copy)"
+
+
+def device_ms_of(rows, kernel: str):
+    """Device ms per launch of the profiled kernel whose name holds ``kernel``."""
+    mine = [r for r in rows if kernel in r[0]]
+    return mine[0][1] / mine[0][2] if mine else None
+
+
+def by_class(rows) -> dict:
+    classes = {}
+    for name, ms, _ in rows:
+        classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + ms
+    return dict(sorted(classes.items(), key=lambda kv: -kv[1]))
 
 
 def wall_ms(fn) -> float:
@@ -125,6 +167,172 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def phase_generate(dev: torch.device, card: str, n_each: int = 1000, n_scenes: int = 64) -> dict:
+    """Phase 9: the generate_data CLI at the published counts (``n_each``
+    standard and subdomain samples per theta stratum, ``n_scenes`` cascade
+    scenes), its file checked, standard samples held against a float64 DST
+    solve."""
+    import numpy as np
+
+    from superresolution_for_pdes_tpu_torch.cli import generate_data
+    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
+    from superresolution_for_pdes_tpu_torch.solver.dst import solve_poisson_dst
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = generate_data.main(["--n_standard", str(n_each), "--n_subdomain", str(n_each),
+                                   "--theta", "mixed", "--n_cascade_scenes", str(n_scenes),
+                                   "--plot_samples", "0", "--out", tmp,
+                                   "--device", dev.type])
+        cli_s = time.perf_counter() - t0
+        with np.load(path) as z:
+            data = {k: z[k] for k in z.files}
+    n_tiles = n_scenes * 8 * 4  # scenes x tiles per level x level pairs 40 -> 640
+    n = 4 * n_each + n_tiles
+    shapes = {"u_fine": (n, 40, 40), "f_fine": (n, 40, 40), "theta_fine": (n, 40, 40),
+              "u_coarse": (n, 20, 20), "f_coarse": (n, 20, 20), "theta_coarse": (n, 20, 20),
+              "k1": (n,), "k2": (n,), "is_subdomain": (n,)}
+    check(set(data) == set(shapes), f"npz keys {sorted(data)}")
+    for key, shape in shapes.items():
+        check(data[key].shape == shape, f"{key}: shape {data[key].shape} != {shape}")
+        if key != "is_subdomain":
+            check(bool(np.isfinite(data[key]).all()), f"{key}: non-finite values")
+    check(data["is_subdomain"].dtype == bool
+          and int(data["is_subdomain"].sum()) == 2 * n_each + n_tiles, "is_subdomain flags")
+    # standard samples: theta == 1 first, then subdomain, then theta ~ U(0.5, 2)
+    idx = [0, 1, n_each - 1, 2 * n_each, 2 * n_each + 1, 3 * n_each - 1]
+    worst = 0.0
+    for grid in ("fine", "coarse"):
+        f, th, u = (torch.from_numpy(data[f"{name}_{grid}"][idx]).to(dev, torch.float64)
+                    for name in ("f", "theta", "u"))
+        ref = solve_poisson_dst(f, th, refine_iters=1)
+        for i in range(len(idx)):
+            rel = float((u[i] - ref[i]).abs().max() / ref[i].abs().max())
+            worst = max(worst, rel)
+            check(rel <= 1e-5, f"sample {idx[i]} u_{grid}: {rel:.2e} from the float64 solve")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate_mixed_dataset(42, n_each, n_each, theta="mixed", n_cascade_scenes=n_scenes,
+                           device=dev)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    log(f"[generate] {n} samples ({n_tiles} cascade tiles): keys, shapes and finiteness ok; "
+        f"{len(idx)} standard samples within {worst:.2e} of a float64 DST solve (tol 1e-5); "
+        f"CLI wall {cli_s:.2f} s (first call, .npz write included), generation alone "
+        f"{warm_s:.3f} s warm, on {card}")
+    return {"samples": n, "cli_s": cli_s, "generation_warm_s": warm_s,
+            "max_rel_err_vs_f64": worst}
+
+
+def phase_train(dev: torch.device, card: str, smi: str) -> dict:
+    """Phase 10: the train CLI with the champion's first-stage recipe, cut to
+    2 epochs; K1's launches counted over the run; checkpoints reloaded; one
+    step with K1 against one with its twin; step time and profile."""
+    from superresolution_for_pdes_tpu_torch.cli import train as train_cli
+    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
+    from superresolution_for_pdes_tpu_torch.models import AttentionUNet, count_parameters
+    from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+    from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
+    from superresolution_for_pdes_tpu_torch.train.checkpoint import load_model_state
+
+    # scripts/rebuild_champion.sh:87-90, stage flagship_r7; the one cut: 2 epochs, not 1000
+    recipe = ["--generate", "--gen_stream", "--gen_theta", "mixed", "--gen_cascade_scenes", "384",
+              "--gen_tiles_per_level", "12", "--gen_cascade_k", "6", "12",
+              "--normalization", "per_sample", "--scale_channels", "--physics_weight", "0.3",
+              "--early_stopping_patience", "50", "--plateau_patience", "25", "--epochs", "2"]
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(4, 5, 40, 40, device=dev, generator=gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = train_cli.main([*recipe, "--results", tmp, "--device", dev.type])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        counts = sk.launch_counts()
+        for which in ("best_model", "final_model"):
+            restored = AttentionUNet(in_channels=5).to(dev)
+            restored.load_state_dict(load_model_state(hist["run_dir"], which))
+            with torch.no_grad():
+                y = restored.eval()(x)
+            check(y.shape == (4, 1, 40, 40) and bool(torch.isfinite(y).all()),
+                  f"{which}: forward of the reloaded U-Net")
+    steps, chunks = sum(hist["train_steps"]), sum(hist["eval_chunks"])
+    expected = 2 * steps + chunks
+    log(f"[train] 2 epochs: {steps} train steps {hist['train_steps']}, {chunks} validation "
+        f"chunks {hist['eval_chunks']}; launches {counts}; K1 expected 2 x {steps} + {chunks} "
+        f"= {expected}")
+    check(counts["kernel_apply_operator"] == expected,
+          f"K1 launches {counts['kernel_apply_operator']} != {expected}")
+    losses = hist["train_loss"] + hist["val_loss"]
+    check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
+    model, stats = hist["model"], hist["stats"]
+    n_params = count_parameters(model)
+    check(n_params == 7_835_740, f"{n_params} parameters")
+    log(f"[train] losses train {hist['train_loss']} val {hist['val_loss']}; "
+        f"{n_params} parameters; best_model and final_model reload and run")
+
+    # one step's loss and gradients with K1 and with its twin, same weights and batch
+    ds = generate_mixed_dataset(7, 16, 16, theta="mixed", device=dev)
+    arrays = loop.prepare_arrays(ds, stats, per_sample=True, scale_channels=True)
+    idx = torch.arange(0, 64, 2, device=dev)  # 32 samples of all four strata
+    batch = {k: v[idx] for k, v in arrays.items()}
+    state0 = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.backends.cudnn.deterministic = True
+    step = {}
+    for use_kernel in (True, False):
+        model.load_state_dict(state0)
+        model.train().zero_grad(set_to_none=True)
+        loss = loop.batch_loss(model, batch, stats, 0.3, use_kernel)
+        loss.backward()
+        step[use_kernel] = (float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()})
+    torch.backends.cudnn.deterministic = False
+    model.load_state_dict(state0)
+    (loss_k, grads_k), (loss_p, grads_p) = step[True], step[False]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(loss_rel <= 1e-6, f"loss with K1 {loss_k} vs twin {loss_p}")
+    top = max(float(g.abs().max()) for g in grads_p.values())
+    grad_rel = 0.0
+    for name, ref in grads_p.items():
+        scale = float(ref.abs().max())
+        if scale < 1e-6 * top:  # a conv bias feeding BatchNorm: rounding noise only
+            continue
+        rel = float((grads_k[name] - ref).abs().max()) / scale
+        grad_rel = max(grad_rel, rel)
+        check(rel <= 1e-5, f"gradient {name}: kernel path vs twin path {rel:.2e}")
+    log(f"[train] one step, K1 vs twin: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}), "
+        f"worst gradient tensor {grad_rel:.2e} of its max (tol 1e-6 / 1e-5)")
+
+    # a warm step's time and where it goes
+    opt = loop.make_optimizer(model, TrainConfig())
+
+    def train_step():
+        return loop.train_step(model, opt, batch, stats, 0.3, 1.0)
+
+    sk.reset_launch_counts()
+    step_ms = time_ms(train_step, reps=50)
+    check(sk.launch_counts()["kernel_apply_operator"] == 2 * 55, "K1 launches per step")
+    wall, busy, rows = profile(train_step, reps=10)
+    classes = by_class(rows)
+    log(f"[train] warm step, batch 32 at 40^2: {step_ms:.3f} ms (CUDA events), "
+        f"{32e3 / step_ms:.0f} samples/s; device busy {busy:.3f} ms per step = "
+        f"{100 * busy / step_ms:.0f}% of the step ({100 * busy / wall:.0f}% of the "
+        f"{wall:.3f} ms per step under the profiler), on {smi}")
+    for cls, ms in classes.items():
+        log(f"[train]   {ms:8.4f} ms per step  {cls}")
+    for name, ms, calls in rows[:8]:
+        log(f"[train]   {ms:8.4f} ms  {calls:5.0f} launches per step  {name[:80]}")
+    launches = sum(r[2] for r in rows)
+    log(f"[train] {launches:.0f} device kernel launches per step")
+    log(f"[train] epochs: regeneration {hist['regen_seconds']} s, epoch wall "
+        f"{hist['epoch_seconds']} s; CLI run {run_s:.1f} s, on {card}")
+    return {"k1_launches": counts["kernel_apply_operator"],
+            "summary": {"steps": steps, "eval_chunks": chunks, "step_ms": step_ms,
+                        "samples_per_s": 32e3 / step_ms, "device_busy_ms": busy,
+                        "busy_share": busy / step_ms, "launches_per_step": launches,
+                        "classes_ms": classes, "regen_s": hist["regen_seconds"],
+                        "epoch_s": hist["epoch_seconds"], "run_s": run_s}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -139,11 +347,18 @@ def main() -> None:
     from superresolution_for_pdes_tpu_torch.ops import _build
     from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
     from superresolution_for_pdes_tpu_torch.ops.grid import forcing_term
+    from superresolution_for_pdes_tpu_torch.physics.loss import apply_operator
     from superresolution_for_pdes_tpu_torch.solver.dst import solve_poisson_dst
     from superresolution_for_pdes_tpu_torch.solver.multigrid import solve_poisson_mg
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        log(f"[seconds] {phase}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
 
     # ------------------------------------------------------------ 1. device
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -160,11 +375,12 @@ def main() -> None:
     log(f"[build] {build.seconds:.2f} s")
     for stem, out in build.log.items():
         log(f"[build] nvcc {stem}.cu:\n{out.strip()}")
+    lap("1-2 device and build")
 
     # ----------------------------------------------------------- 3. kernels
     gen = torch.Generator(device=dev).manual_seed(0)
     tol = 4e-6
-    worst = {"K2": [0.0, 0.0], "K3": [0.0, 0.0]}  # [max_abs_err, max_rel_err]
+    worst = {key: [0.0, 0.0] for key in ("K1", "K2", "K3")}  # [max_abs_err, max_rel_err]
 
     def compare(key, what, out, ref):
         torch.cuda.synchronize()
@@ -208,13 +424,13 @@ def main() -> None:
         fn = ((lambda: sk.kernel_residual(-1.0, u, b)) if key == "K2"
               else (lambda: sk.kernel_jacobi_smooth(u, b, iters=2)))
         _, _, rows = profile(fn, reps=50)
-        mine = [r for r in rows if ("residual_kernel" if key == "K2" else "jacobi_kernel") in r[0]]
-        t["device_ms"] = mine[0][1] / mine[0][2] if mine else None
+        t["device_ms"] = device_ms_of(rows, K2_NAME if key == "K2" else K3_NAME)
         log(f"[kernels] {key} at 640^2 batch 1: device time per launch (profiler) "
-            f"{t['device_ms'] if mine else 'not measured'} ms")
+            f"{t['device_ms'] or 'not measured'} ms")
         log(f"[kernels] {key} at 640^2 batch 1: kernel {t['ms']:.4f} ms, twin "
             f"{t['plain_ms']:.4f} ms, F.conv2d L.u {library_ms:.4f} ms, bound "
             f"{t['bound'][0]:.4f} ms ({t['bound'][1]}) on {smi}")
+    lap("3 kernels")
 
     # ------------------------------------------------------------- 4. serve
     levels, tiles = (80, 160, 320, 640), [40, 80, 80]
@@ -270,7 +486,7 @@ def main() -> None:
         torch.cuda.synchronize()
     check(sk.launch_counts() == counts, "use_kernels=False launched a kernel")
     kernel_levels = [r for r in levels if r >= 160]
-    expected = {"kernel_residual": 2 * len(kernel_levels),
+    expected = {"kernel_apply_operator": 0, "kernel_residual": 2 * len(kernel_levels),
                 "kernel_jacobi_smooth": 2 * 2 * len(kernel_levels)}
     log(f"[refine] launches {counts}, expected {expected}; wall {refine_ms:.1f} ms on {card}")
     check(counts == expected, f"launch counts {counts} != {expected}")
@@ -284,6 +500,7 @@ def main() -> None:
         check(diff <= 1e-5 * scale, f"refined {r}: kernel path differs by {diff:.3e}")
         if r in kernel_levels:
             check(err < err_served[r], f"refine did not lower rel-L2 at {r}")
+    lap("4-5 serve and refine")
 
     # ------------------------------------------------------ 6. multigrid
     k = torch.tensor([[3.3, 7.1], [10.5, 10.2], [6.0, 1.5], [11.9, 8.4]], device=dev)
@@ -298,6 +515,7 @@ def main() -> None:
     log(f"[multigrid] 640^2 batch 4, 12 cycles: max|mg - dst| {mg_err:.3e} "
         f"(max|u| {mg_scale:.3e}); wall {mg_ms:.1f} ms on {card}; launches {sk.launch_counts()}")
     check(mg_err <= 1e-4 * mg_scale, "multigrid does not reach the DST solution")
+    lap("6 multigrid")
 
     # ------------------------------------------------------- 7. profile
     for label, extra in (("serve", {"refine_cycles": 0}), ("refine", {})):
@@ -309,29 +527,80 @@ def main() -> None:
         log(f"[profile] {label} cascade to 640: wall {plain_wall:.1f} ms ({wall:.1f} ms under "
             f"the profiler), device busy {busy:.1f} ms = {100 * busy / wall:.0f}% of the "
             f"profiled wall, on {card}")
-        classes = {}
-        for name, ms, _ in rows:
-            classes[kernel_class(name)] = classes.get(kernel_class(name), 0.0) + ms
-        for cls, ms in sorted(classes.items(), key=lambda kv: -kv[1]):
+        for cls, ms in by_class(rows).items():
             log(f"[profile]   {ms:8.3f} ms  {cls}")
         for name, ms, calls in rows[:6]:
             log(f"[profile]   {ms:8.3f} ms  {calls:6.0f} launches  {name[:80]}")
+    lap("7 profile")
 
+    # ---------------------------------------------------------------- 8. K1
+    for shape in [(32, 40, 40), (1024, 40, 40), (32, 80, 80), (1, 640, 640), (3, 41, 41)]:
+        u = torch.randn(shape, device=dev, generator=gen)
+        theta = torch.rand(shape, device=dev, generator=gen) * 1.5 + 0.5
+        for th, label in ((1.0, "scalar"), (theta, "field")):
+            compare("K1", f"{shape} theta {label}", sk.kernel_apply_operator(th, u),
+                    sk.plain_apply_operator(th, u))
+    for shape in [(32, 40, 40), (3, 41, 41)]:
+        u, g = (torch.randn(shape, device=dev, generator=gen) for _ in range(2))
+        theta = torch.rand(shape, device=dev, generator=gen) * 1.5 + 0.5
+        grads = {}
+        for use_kernel in (True, False):
+            x = u.clone().requires_grad_(True)
+            apply_operator(theta, x, use_kernel).backward(g)
+            grads[use_kernel] = x.grad
+        compare("K1", f"{shape} backward", grads[True], grads[False])
+    log(f"[K1] matches its twin forward (theta scalar and field) and backward at every shape "
+        f"(max rel err {worst['K1'][1]:.2e}, max abs err {worst['K1'][0]:.2e}; tol {tol})")
+    k1_timing = {}
+    for shape in [(32, 40, 40), (1, 640, 640)]:
+        n1 = shape[-1]
+        u = torch.randn(shape, device=dev, generator=gen)
+        theta = torch.rand(shape, device=dev, generator=gen) * 1.5 + 0.5
+        w5 = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]],
+                          device=dev).div((1.0 / (n1 - 1)) ** 2).reshape(1, 1, 3, 3)
+        points = shape[0] * n1 * n1
+        t = dict(ms=time_ms(lambda: sk.kernel_apply_operator(theta, u)),
+                 plain_ms=time_ms(lambda: sk.plain_apply_operator(theta, u)),
+                 library_ms=time_ms(lambda: theta * F.conv2d(u[:, None], w5, padding=1)[:, 0]),
+                 bound=bound(3 * 4 * points, 7 * points))
+        _, _, rows = profile(lambda: sk.kernel_apply_operator(theta, u), reps=50)
+        t["device_ms"] = device_ms_of(rows, K1_NAME)
+        k1_timing[shape] = t
+        log(f"[K1] {shape} theta field: device time per launch (profiler) "
+            f"{t['device_ms'] or 'not measured'} ms; kernel {t['ms']:.4f} ms per call, twin "
+            f"{t['plain_ms']:.4f} ms, theta * F.conv2d (two calls) {t['library_ms']:.4f} ms, "
+            f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}) on {smi}")
+    lap("8 K1")
+
+    # ---------------------------------------------------------- 9. generate
+    generated = phase_generate(dev, card)
+    lap("9 generate")
+
+    # ------------------------------------------------------------- 10. train
+    trained = phase_train(dev, card, smi)
+    lap("10 train")
+
+    t = k1_timing[(32, 40, 40)]
+    timing["K1"] = dict(t, shape=[32, 40, 40])
+    for key in ("K2", "K3"):
+        timing[key].update(library_ms=library_ms, shape=[1, 640, 640])
+    launches = {"K1": trained["k1_launches"], "K2": counts["kernel_residual"],
+                "K3": counts["kernel_jacobi_smooth"]}
     rows = []
-    for key, name, replaces in (
-        ("K2", "kernel_residual", "superresolution_for_pdes_tpu/ops/pallas_stencil.py:115"),
-        ("K3", "kernel_jacobi_smooth", "superresolution_for_pdes_tpu/ops/pallas_stencil.py:131"),
-    ):
+    for key, name, line in (("K1", "kernel_apply_operator", 100), ("K2", "kernel_residual", 115),
+                            ("K3", "kernel_jacobi_smooth", 131)):
         t = timing[key]
         rows.append({
             "name": f"{key} {name}", "route": "cuda",
             "source": "superresolution_for_pdes_tpu_torch/csrc/stencil.cu",
-            "replaces": replaces, "launches": counts[name],
+            "replaces": f"superresolution_for_pdes_tpu/ops/pallas_stencil.py:{line}",
+            "launches": launches[key],
             "max_abs_err": worst[key][0], "max_rel_err": worst[key][1],
             "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": library_ms,
-            "device_ms": t["device_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"], "shape": t["shape"],
         })
+    log(f"[summary] generate {generated}; train {trained['summary']}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -1,7 +1,7 @@
 """Subcommand dispatcher: ``python -m superresolution_for_pdes_tpu_torch <cmd> ...``.
 
-Only ``upscale`` is ported so far; the other commands of the JAX package are
-listed in ROADMAP.md.
+``generate_data``, ``train`` and ``upscale`` are ported so far; the other
+commands of the JAX package are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -10,6 +10,8 @@ import importlib
 import sys
 
 COMMANDS = {
+    "generate_data": "superresolution_for_pdes_tpu_torch.cli.generate_data",
+    "train": "superresolution_for_pdes_tpu_torch.cli.train",
     "upscale": "superresolution_for_pdes_tpu_torch.cli.upscale",
 }
 

@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) kernels for the truncated 5-point stencil of
-// the Galerkin V-cycle's finest level.
+// the physics loss (K1) and the Galerkin V-cycle's finest level (K2, K3).
 //
 //   L u = (S(u) - 4 u) / h^2,   S(u) = u[i-1,j] + u[i+1,j] + u[i,j-1] + u[i,j+1],
 //
@@ -7,6 +7,16 @@
 // batch of (n, n) float32 slabs: a 2-D grid of blocks tiles each slab and the
 // batch index is blockIdx.z. Each block stages its tile plus a halo in shared
 // memory and masks the grid edge and the ragged last tiles itself.
+//
+// K1  srpde_apply_operator -- replaces superresolution_for_pdes_tpu/ops/pallas_stencil.py
+//     pallas_apply_operator (_apply_op_kernel): out = theta * (S(u) - 4u) / h^2.
+//     theta is a field, or a scalar when the theta pointer is null. It is the
+//     physics loss's operator; its gradient L(theta * g) is K1 again with
+//     scalar theta = 1 (the truncated L is symmetric).
+//     Bound on an H100: bytes. With a theta field it reads u and theta and
+//     writes out, 12 bytes a point: 614 KB, 0.18 us for the training batch
+//     (32, 40, 40), so at the loss's shapes the launch latency dominates. It
+//     shares K2's tile, halo and masking (one template, stencil_kernel).
 //
 // K2  srpde_residual -- replaces superresolution_for_pdes_tpu/ops/pallas_stencil.py
 //     pallas_residual (_residual_kernel): out = f - theta * (S(u) - 4u) / h^2.
@@ -56,10 +66,13 @@ __device__ __forceinline__ bool in_grid(int y, int x, int n) {
   return y >= 0 && y < n && x >= 0 && x < n;
 }
 
+// K1 (kResidual = false): out = theta * lap. K2 (kResidual = true):
+// out = f - theta * lap. f is read only by K2.
+template <bool kResidual>
 __global__ void __launch_bounds__(kThreads)
-residual_kernel(const float* __restrict__ theta, float theta_scalar,
-                const float* __restrict__ u, const float* __restrict__ f,
-                float* __restrict__ out, int n, float h2) {
+stencil_kernel(const float* __restrict__ theta, float theta_scalar,
+               const float* __restrict__ u, const float* __restrict__ f,
+               float* __restrict__ out, int n, float h2) {
   __shared__ float tile[kTileH + 2][kTileW + 2];
   const size_t slab = static_cast<size_t>(n) * n;
   const size_t base = static_cast<size_t>(blockIdx.z) * slab;
@@ -86,7 +99,11 @@ residual_kernel(const float* __restrict__ theta, float theta_scalar,
   const float lap = (s - 4.0f * c) / h2;
   const size_t idx = base + static_cast<size_t>(gy) * n + gx;
   const float th = theta != nullptr ? theta[idx] : theta_scalar;
-  out[idx] = f[idx] - th * lap;
+  if constexpr (kResidual) {
+    out[idx] = f[idx] - th * lap;
+  } else {
+    out[idx] = th * lap;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -155,11 +172,19 @@ dim3 grid_for(int n, int batch) {
 
 extern "C" int srpde_max_fused_iters() { return kMaxFusedIters; }
 
+extern "C" int srpde_apply_operator(const float* theta, float theta_scalar, const float* u,
+                                    float* out, int batch, int n, float h2, void* stream) {
+  stencil_kernel<false><<<grid_for(n, batch), dim3(kTileW, kTileH), 0,
+                          static_cast<cudaStream_t>(stream)>>>(theta, theta_scalar, u, nullptr,
+                                                               out, n, h2);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int srpde_residual(const float* theta, float theta_scalar, const float* u,
                               const float* f, float* out, int batch, int n, float h2,
                               void* stream) {
-  residual_kernel<<<grid_for(n, batch), dim3(kTileW, kTileH), 0,
-                    static_cast<cudaStream_t>(stream)>>>(theta, theta_scalar, u, f, out, n, h2);
+  stencil_kernel<true><<<grid_for(n, batch), dim3(kTileW, kTileH), 0,
+                         static_cast<cudaStream_t>(stream)>>>(theta, theta_scalar, u, f, out, n, h2);
   return static_cast<int>(cudaGetLastError());
 }
 

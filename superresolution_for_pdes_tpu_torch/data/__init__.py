@@ -1,1 +1,1 @@
-"""Normalization statistics and model-input assembly."""
+"""Data: generation, ``.npz`` I/O, split and batching, normalization."""

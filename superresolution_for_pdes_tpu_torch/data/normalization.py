@@ -14,7 +14,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -74,6 +74,11 @@ class NormStats:
             theta_std=torch.where(is_const, one, theta_std),
             theta_is_constant=is_const,
         )
+
+    @classmethod
+    def from_dataset(cls, dataset: Mapping[str, torch.Tensor]) -> "NormStats":
+        """Split-level stats of a dataset dict (u from ``u_fine``)."""
+        return cls.from_fields(dataset["u_fine"], dataset["f_fine"], dataset["theta_fine"])
 
 
 def per_sample_stats(u_coarse: torch.Tensor, f_fine: torch.Tensor,

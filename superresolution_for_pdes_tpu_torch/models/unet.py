@@ -17,8 +17,10 @@ Module attributes follow the reference checkpoint namespace (``enc1.conv1``,
 ``att3.spatial_attention.0``, ``out_conv{i}``, ``out_bn{i}``, ``final``), so the
 JAX package's ``torch_state_dict_to_variables`` reads a port state_dict as it
 is. ``norm="group"`` uses GroupNorm with group size 8 when the channel count
-is a multiple of 8, else 1 (the Flax rule). Weights are Kaiming fan_out
-normal (ReLU gain), biases zero, norm scale 1 and shift 0.
+is a multiple of 8, else 1 (the Flax rule); ``norm="batch"`` is
+:class:`BatchNorm2d`, whose running variance in training follows Flax's.
+Weights are Kaiming fan_out normal (ReLU gain), biases zero, norm scale 1 and
+shift 0.
 
 Parameter count at the default widths with 3 input channels: 7,834,588.
 """
@@ -35,9 +37,32 @@ from torch import nn
 from superresolution_for_pdes_tpu_torch.ops.resize import resize_align_corners, upsample2x
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance follows Flax's ``BatchNorm``.
+
+    Both normalize a training batch with its biased variance, but
+    ``nn.BatchNorm2d`` averages the *unbiased* batch variance into
+    ``running_var`` while Flax averages the biased one. In training mode this
+    layer normalizes with the batch statistics and updates the running
+    statistics itself: ``r <- r + momentum (batch - r)``, the biased variance
+    included. Evaluation mode is ``nn.BatchNorm2d``'s.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked += 1
+        return y
+
+
 def make_norm(kind: str, features: int) -> nn.Module:
     if kind == "batch":
-        return nn.BatchNorm2d(features, eps=1e-5, momentum=0.1)
+        return BatchNorm2d(features, eps=1e-5, momentum=0.1)
     if kind == "group":
         group_size = 8 if features % 8 == 0 else 1
         return nn.GroupNorm(features // group_size, features, eps=1e-5)

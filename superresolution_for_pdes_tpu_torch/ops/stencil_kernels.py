@@ -1,6 +1,9 @@
-"""Hand-written CUDA stencil kernels K2 and K3 with their plain twins (port of
-``ops/pallas_stencil.py``).
+"""Hand-written CUDA stencil kernels K1, K2 and K3 with their plain twins (port
+of ``ops/pallas_stencil.py``).
 
+* :func:`kernel_apply_operator` (K1) -- ``theta * (S(u) - 4u) / h^2``,
+  replacing ``pallas_apply_operator``; ``theta`` may be a scalar. The physics
+  loss runs it forward and, with ``theta = 1``, backward.
 * :func:`kernel_residual` (K2) -- ``f - theta * (S(u) - 4u) / h^2``, replacing
   ``pallas_residual``; ``theta`` may be a scalar, so the V-cycle's
   ``theta == -1`` call reads no theta field.
@@ -9,13 +12,13 @@
 
 The CUDA source is ``csrc/stencil.cu`` (design and bound noted there). On a
 CUDA tensor a wrapper launches its kernel on the current stream or raises; on
-a CPU tensor it runs the plain twin (:func:`plain_residual`,
-:func:`plain_jacobi_smooth`), which computes the same arithmetic in the same
+a CPU tensor it runs the plain twin (:func:`plain_apply_operator`,
+:func:`plain_residual`, :func:`plain_jacobi_smooth`), which computes the same
+arithmetic in the same
 order with the port's ``ops/stencil.py``. Each wrapper counts its kernel
 launches in ``.launches``; the twins count nothing.
 
 Leading axes are flattened into one batch axis, as the Pallas wrappers do.
-K1 (``pallas_apply_operator``) is not on the port's path yet (see ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -88,6 +91,8 @@ def _lib() -> ctypes.CDLL:
 
     lib = load_library("stencil")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.srpde_apply_operator.argtypes = [ptr, f, ptr, ptr, i, i, f, ptr]
+    lib.srpde_apply_operator.restype = i
     lib.srpde_residual.argtypes = [ptr, f, ptr, ptr, ptr, i, i, f, ptr]
     lib.srpde_residual.restype = i
     lib.srpde_jacobi.argtypes = [ptr, ptr, ptr, i, i, f, f, i, ptr]
@@ -98,6 +103,13 @@ def _lib() -> ctypes.CDLL:
 
 
 # ----------------------------------------------------------------- plain twins
+def plain_apply_operator(theta, u: torch.Tensor, h: float | None = None) -> torch.Tensor:
+    """Plain PyTorch ``theta * (S(u) - 4u) / h^2`` (the Pallas body's
+    arithmetic, ``/ h^2`` included)."""
+    h2 = torch.tensor(_h2(u.shape[-1], h), dtype=u.dtype, device=u.device)
+    return theta * ((shift_sum(u) - 4.0 * u) / h2)
+
+
 def plain_residual(theta, u: torch.Tensor, f: torch.Tensor,
                    h: float | None = None) -> torch.Tensor:
     """Plain PyTorch ``f - theta * (S(u) - 4u) / h^2`` (the Pallas body's
@@ -120,13 +132,42 @@ def plain_jacobi_smooth(u: torch.Tensor, b: torch.Tensor, h: float | None = None
 
 
 # -------------------------------------------------------------------- wrappers
+def _is_scalar(theta) -> bool:
+    return not isinstance(theta, torch.Tensor) or theta.ndim == 0
+
+
+def kernel_apply_operator(theta, u: torch.Tensor, h: float | None = None) -> torch.Tensor:
+    """K1: ``theta * (S(u) - 4u) / h^2`` on the last two axes.
+
+    ``theta`` is a Python number, a 0-d tensor, or a tensor of ``u``'s shape.
+    """
+    scalar = _is_scalar(theta)
+    fields = {} if scalar else {"theta": theta}
+    _check_slabs("kernel_apply_operator", u, **fields)
+    if u.device.type == "cpu":
+        return plain_apply_operator(theta, u, h)
+    if u.device.type != "cuda":
+        raise ValueError(f"kernel_apply_operator: unsupported device {u.device}")
+    _check_cuda("kernel_apply_operator", u, *fields.values())
+    n = u.shape[-1]
+    out = torch.empty_like(u)
+    theta_scalar = float(theta) if scalar else 0.0
+    with torch.cuda.device(u.device):
+        code = _lib().srpde_apply_operator(
+            _ptr(None if scalar else theta), theta_scalar, _ptr(u), _ptr(out),
+            _batch(u), n, float(_h2(n, h)), _stream(u))
+    _raise_on("kernel_apply_operator", code)
+    kernel_apply_operator.launches += 1
+    return out
+
+
 def kernel_residual(theta, u: torch.Tensor, f: torch.Tensor,
                     h: float | None = None) -> torch.Tensor:
     """K2: ``f - theta * (S(u) - 4u) / h^2`` on the last two axes.
 
     ``theta`` is a Python number, a 0-d tensor, or a tensor of ``u``'s shape.
     """
-    scalar = not isinstance(theta, torch.Tensor) or theta.ndim == 0
+    scalar = _is_scalar(theta)
     fields = {"f": f} if scalar else {"f": f, "theta": theta}
     _check_slabs("kernel_residual", u, **fields)
     if u.device.type == "cpu":
@@ -179,10 +220,11 @@ def kernel_jacobi_smooth(u: torch.Tensor, b: torch.Tensor, h: float | None = Non
     return u if iters else u.clone()
 
 
+kernel_apply_operator.launches = 0
 kernel_residual.launches = 0
 kernel_jacobi_smooth.launches = 0
 
-KERNELS = (kernel_residual, kernel_jacobi_smooth)
+KERNELS = (kernel_apply_operator, kernel_residual, kernel_jacobi_smooth)
 
 
 def reset_launch_counts() -> None:

@@ -27,7 +27,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
     count, bad = int(out[0]), out[1] if len(out) > 1 else ""
-    assert count >= 20, count  # every module of the port was imported
+    assert count >= 42, count  # every module of the port was imported
     assert bad == "", f"the port pulled in {bad}"
 
 
@@ -39,8 +39,12 @@ def test_entry_points_raise_without_a_card(tmp_path):
         solve_multi_resolution,
         solve_multi_resolution_batch,
     )
+    from superresolution_for_pdes_tpu_torch.cli import generate_data, train
     from superresolution_for_pdes_tpu_torch.cli.upscale import main
+    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
+    from superresolution_for_pdes_tpu_torch.data.io import load_dataset
     from superresolution_for_pdes_tpu_torch.deploy import load_bundle, run_bundle
+    from superresolution_for_pdes_tpu_torch.train import TrainConfig, train_model
 
     calls = (
         resolve_device,
@@ -49,6 +53,11 @@ def test_entry_points_raise_without_a_card(tmp_path):
         lambda: load_bundle(tmp_path),
         lambda: run_bundle(tmp_path, {}, 80),
         lambda: main(["--bundle", str(tmp_path), "--target", "80", "--out", str(tmp_path)]),
+        lambda: generate_mixed_dataset(0, 2, 2),
+        lambda: load_dataset(tmp_path),
+        lambda: train_model({}, TrainConfig(), tmp_path),
+        lambda: generate_data.main(["--n_standard", "2", "--out", str(tmp_path)]),
+        lambda: train.main(["--generate", "--epochs", "1", "--results", str(tmp_path)]),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -1,7 +1,7 @@
 """PyTorch port, ``ops/``: grid, align-corners resize, 5-point stencil and the
 plain twins of the stencil kernels K2/K3, each against the JAX package (the
 Pallas kernels in interpret mode, as ``tests/test_pallas_stencil.py`` runs
-them)."""
+them; K1's twin is held in ``tests/test_torch_physics.py``)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -97,10 +97,13 @@ def test_cpu_wrappers_run_twins_and_count_nothing(rng):
     for th in (-1.0, torch.tensor(-1.0), theta):
         assert torch.equal(sk.kernel_residual(th, u, f, h=0.05),
                            sk.plain_residual(th, u, f, h=0.05))
+        assert torch.equal(sk.kernel_apply_operator(th, u, h=0.05),
+                           sk.plain_apply_operator(th, u, h=0.05))
     for iters in (0, 2, 5):
         assert torch.equal(sk.kernel_jacobi_smooth(u, f, iters=iters, omega=0.7),
                            sk.plain_jacobi_smooth(u, f, iters=iters, omega=0.7))
-    assert sk.launch_counts() == {"kernel_residual": 0, "kernel_jacobi_smooth": 0}
+    assert sk.launch_counts() == {"kernel_apply_operator": 0, "kernel_residual": 0,
+                                  "kernel_jacobi_smooth": 0}
 
 
 def test_wrappers_reject_bad_shapes(rng):
