@@ -7,10 +7,12 @@ Phases (any failed check raises, and the script exits non-zero):
 
 1. device -- the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build  -- ``nvcc`` builds every ``csrc/*.cu`` of the port (sm_90a);
-3. kernels -- K2 (``kernel_residual``) and K3 (``kernel_jacobi_smooth``)
-   against their plain PyTorch twins at the refine path's shapes plus ragged
-   ones; times of kernel, twin, a ``F.conv2d`` 5-point yardstick and the
-   memory bound at 640^2;
+3. kernels -- K2 (``kernel_residual``) and K3 (``kernel_jacobi_smooth``, 1 to
+   6 sweeps) against their plain PyTorch twins at the refine path's shapes
+   plus ragged ones; K3's device time per call (profiler), time per call
+   (CUDA events), twin and bound at (1, 160^2), (1, 320^2), (1, 640^2) and
+   (4, 640^2) beside a ``F.conv2d`` 5-point yardstick's device time and time
+   per call; K3 at 2, 4 and 6 sweeps per call; K2 at 640^2;
 4. serve  -- four full-width 5-channel BatchNorm experts from seeded
    generators, frozen into a bundle with the champion manifest (tile stats,
    tiles 40/80/80, grid gains) and served by ``deploy.run_bundle`` on one
@@ -24,10 +26,14 @@ Phases (any failed check raises, and the script exits non-zero):
 7. profile -- ``torch.profiler`` device time of the served and the refined
    cascade to 640^2, and the device busy share;
 8. K1 -- ``kernel_apply_operator`` against its twin at the training path's
-   shapes plus 640^2 and a ragged one, theta scalar and field; the physics
-   loss's autograd backward (K1 on ``theta * g``) against the twin path;
-   device time, time per call, twin, bound and a ``theta * F.conv2d``
-   yardstick at (32, 40, 40) and 640^2;
+   shapes plus 640^2 and a ragged one, theta scalar and field, and its
+   adjoint ``L(theta g)`` against autograd of the twin; the fused
+   physics-loss kernels (``kernel_pde_loss_forward``/``_backward``) against
+   their twins at the training shapes with 0-d and per-sample stats, and
+   bit for bit over two calls; device time, time per call, twin and bound of
+   the operator and of the loss per train step at (32, 40, 40) and
+   (32, 160, 160), beside the same loss composed without the fusion (the
+   operator kernel between elementwise launches, forward and backward);
 9. generate -- the ``generate_data`` CLI at the published counts (1000
    standard + 1000 subdomain, theta mixed, 64 cascade scenes): the ``.npz``
    keys, shapes and finiteness, and standard samples against a float64 DST
@@ -35,11 +41,13 @@ Phases (any failed check raises, and the script exits non-zero):
 10. train -- the ``train`` CLI with the champion's first-stage recipe
    (``scripts/rebuild_champion.sh:87-90``; full-width 5-channel BatchNorm
    U-Net, batch 32, streamed regeneration, physics weight 0.3), cut to 2
-   epochs, with K1's launch count reset just before and read just after
-   (it must be 2 per train step plus 1 per validation chunk); the checkpoints
-   load into a U-Net; one step's loss and gradients with K1 and with the twin
-   agree; a warm step's time, a profiler split by kernel class and the device
-   busy share.
+   epochs, with the launch counts reset just before and read just after (the
+   fused loss forward once per train step and per validation chunk, its
+   backward once per train step, the operator kernel never); the checkpoints
+   load into a U-Net; one step's loss and gradients with the kernels and
+   with the twins agree; a warm step's time, its device launches (at most
+   445; 455 before the loss was fused), a profiler split by kernel class and
+   the device busy share.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true, "device":
@@ -116,13 +124,16 @@ def profile(fn, reps: int = 1):
     return wall, sum(r[1] for r in rows), rows
 
 
-K1_NAME, K2_NAME, K3_NAME = "stencil_kernel<false>", "stencil_kernel<true>", "jacobi_kernel"
+K1_NAME, K2_NAME, K3_NAME = "pde_operator_kernel", "residual_kernel", "jacobi_kernel"
+# the loss forward is two kernels: pde_loss_forward_kernel and its one-block sum
+K1_FWD_NAME, K1_BWD_NAME = "pde_loss_forward", "pde_loss_backward_kernel"
+UNFUSED_LAUNCHES_PER_STEP = 455  # a train step with the loss unfused (PERF.md): ~18 of them
 
 
 def kernel_class(name: str) -> str:
     """Coarse class of a device kernel by its name."""
     low = name.lower()
-    if K1_NAME in low:
+    if any(k in low for k in (K1_NAME, K1_FWD_NAME, K1_BWD_NAME)):
         return "stencil K1"
     if K2_NAME in low or K3_NAME in low:
         return "stencil (K2/K3)"
@@ -136,10 +147,17 @@ def kernel_class(name: str) -> str:
     return "other (elementwise, norm, copy)"
 
 
-def device_ms_of(rows, kernel: str):
-    """Device ms per launch of the profiled kernel whose name holds ``kernel``."""
-    mine = [r for r in rows if kernel in r[0]]
-    return mine[0][1] / mine[0][2] if mine else None
+def device_ms_per_call(fn, kernel: str | None = None, reps: int = 50) -> float:
+    """Device ms per call of ``fn`` (profiler): of the kernels whose names hold
+    ``kernel``, or of every kernel ``fn`` launches."""
+    _, busy, rows = profile(fn, reps=reps)
+    return busy if kernel is None else sum(r[1] for r in rows if kernel in r[0])
+
+
+def laplacian_weights(n: int, dev: torch.device) -> torch.Tensor:
+    """The 5-point ``L`` as a 3x3 ``F.conv2d`` filter (a library yardstick)."""
+    w = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]], device=dev)
+    return w.div((1.0 / (n - 1)) ** 2).reshape(1, 1, 3, 3)
 
 
 def by_class(rows) -> dict:
@@ -257,12 +275,13 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
             check(y.shape == (4, 1, 40, 40) and bool(torch.isfinite(y).all()),
                   f"{which}: forward of the reloaded U-Net")
     steps, chunks = sum(hist["train_steps"]), sum(hist["eval_chunks"])
-    expected = 2 * steps + chunks
+    expected = {"kernel_apply_operator": 0, "kernel_pde_loss_forward": steps + chunks,
+                "kernel_pde_loss_backward": steps, "kernel_residual": 0,
+                "kernel_jacobi_smooth": 0}
     log(f"[train] 2 epochs: {steps} train steps {hist['train_steps']}, {chunks} validation "
-        f"chunks {hist['eval_chunks']}; launches {counts}; K1 expected 2 x {steps} + {chunks} "
-        f"= {expected}")
-    check(counts["kernel_apply_operator"] == expected,
-          f"K1 launches {counts['kernel_apply_operator']} != {expected}")
+        f"chunks {hist['eval_chunks']}; launches {counts}; expected loss forward {steps} + "
+        f"{chunks}, backward {steps}, operator 0")
+    check(counts == expected, f"launches {counts} != {expected}")
     losses = hist["train_loss"] + hist["val_loss"]
     check(all(math.isfinite(v) for v in losses), f"non-finite losses {losses}")
     model, stats = hist["model"], hist["stats"]
@@ -289,7 +308,7 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
     model.load_state_dict(state0)
     (loss_k, grads_k), (loss_p, grads_p) = step[True], step[False]
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    check(loss_rel <= 1e-6, f"loss with K1 {loss_k} vs twin {loss_p}")
+    check(loss_rel <= 1e-6, f"loss with the kernels {loss_k} vs twins {loss_p}")
     top = max(float(g.abs().max()) for g in grads_p.values())
     grad_rel = 0.0
     for name, ref in grads_p.items():
@@ -299,7 +318,7 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
         rel = float((grads_k[name] - ref).abs().max()) / scale
         grad_rel = max(grad_rel, rel)
         check(rel <= 1e-5, f"gradient {name}: kernel path vs twin path {rel:.2e}")
-    log(f"[train] one step, K1 vs twin: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}), "
+    log(f"[train] one step, fused K1 loss vs twins: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}), "
         f"worst gradient tensor {grad_rel:.2e} of its max (tol 1e-6 / 1e-5)")
 
     # a warm step's time and where it goes
@@ -310,7 +329,10 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
 
     sk.reset_launch_counts()
     step_ms = time_ms(train_step, reps=50)
-    check(sk.launch_counts()["kernel_apply_operator"] == 2 * 55, "K1 launches per step")
+    step_counts = sk.launch_counts()
+    check(step_counts["kernel_pde_loss_forward"] == 55 and step_counts["kernel_pde_loss_backward"]
+          == 55 and step_counts["kernel_apply_operator"] == 0,
+          f"one fused loss forward and backward per step: {step_counts} over 55 steps")
     wall, busy, rows = profile(train_step, reps=10)
     classes = by_class(rows)
     log(f"[train] warm step, batch 32 at 40^2: {step_ms:.3f} ms (CUDA events), "
@@ -322,10 +344,12 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
     for name, ms, calls in rows[:8]:
         log(f"[train]   {ms:8.4f} ms  {calls:5.0f} launches per step  {name[:80]}")
     launches = sum(r[2] for r in rows)
-    log(f"[train] {launches:.0f} device kernel launches per step")
+    log(f"[train] {launches:.0f} device kernel launches per step (before the loss was "
+        f"fused: {UNFUSED_LAUNCHES_PER_STEP})")
+    check(launches <= 445, f"{launches} device launches per step")
     log(f"[train] epochs: regeneration {hist['regen_seconds']} s, epoch wall "
         f"{hist['epoch_seconds']} s; CLI run {run_s:.1f} s, on {card}")
-    return {"k1_launches": counts["kernel_apply_operator"],
+    return {"launches": counts,
             "summary": {"steps": steps, "eval_chunks": chunks, "step_ms": step_ms,
                         "samples_per_s": 32e3 / step_ms, "device_busy_ms": busy,
                         "busy_share": busy / step_ms, "launches_per_step": launches,
@@ -341,13 +365,14 @@ def main() -> None:
 
     from superresolution_for_pdes_tpu_torch.cascade.multires import solve_multi_resolution
     from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
+    from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
     from superresolution_for_pdes_tpu_torch.deploy import load_bundle, run_bundle, save_bundle
     from superresolution_for_pdes_tpu_torch.eval.metrics import relative_l2
     from superresolution_for_pdes_tpu_torch.models import AttentionUNet
     from superresolution_for_pdes_tpu_torch.ops import _build
     from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
     from superresolution_for_pdes_tpu_torch.ops.grid import forcing_term
-    from superresolution_for_pdes_tpu_torch.physics.loss import apply_operator
+    from superresolution_for_pdes_tpu_torch.physics.loss import pde_residual_loss
     from superresolution_for_pdes_tpu_torch.solver.dst import solve_poisson_dst
     from superresolution_for_pdes_tpu_torch.solver.multigrid import solve_poisson_mg
 
@@ -380,7 +405,8 @@ def main() -> None:
     # ----------------------------------------------------------- 3. kernels
     gen = torch.Generator(device=dev).manual_seed(0)
     tol = 4e-6
-    worst = {key: [0.0, 0.0] for key in ("K1", "K2", "K3")}  # [max_abs_err, max_rel_err]
+    keys = ("K1", "K1 loss forward", "K1 loss backward", "K2", "K3")
+    worst = {key: [0.0, 0.0] for key in keys}  # [max_abs_err, max_rel_err]
 
     def compare(key, what, out, ref):
         torch.cuda.synchronize()
@@ -391,45 +417,73 @@ def main() -> None:
         check(err <= tol * scale,
               f"{key} {what}: max|kernel - twin| {err:.3e} > {tol} * {scale:.3e}")
 
-    for shape in [(1, 160, 160), (1, 320, 320), (1, 640, 640), (8, 161, 161), (3, 41, 41)]:
+    for shape in [(1, 160, 160), (1, 320, 320), (1, 640, 640), (4, 640, 640), (8, 161, 161),
+                  (3, 41, 41), (1, 1023, 1023)]:
         u = torch.randn(shape, device=dev, generator=gen)
         f = torch.randn(shape, device=dev, generator=gen)
         theta = torch.rand(shape, device=dev, generator=gen) * 1.5 + 0.5
         for th, label in ((-1.0, "scalar"), (theta, "field")):
             compare("K2", f"{shape} theta {label}", sk.kernel_residual(th, u, f),
                     sk.plain_residual(th, u, f))
-        for iters in (1, 2, 3):
+        for iters in (1, 2, 3, 4, 6):
             compare("K3", f"{shape} iters {iters}", sk.kernel_jacobi_smooth(u, f, iters=iters),
                     sk.plain_jacobi_smooth(u, f, iters=iters))
-    log(f"[kernels] K2/K3 match their twins at every shape "
+    log(f"[kernels] K2/K3 match their twins at every shape, K3 at 1-6 sweeps "
         f"(max rel err K2 {worst['K2'][1]:.2e}, K3 {worst['K3'][1]:.2e}; tol {tol})")
 
+    k3_timing = {}
+    for shape in [(1, 160, 160), (1, 320, 320), (1, 640, 640), (4, 640, 640)]:
+        n = shape[-1]
+        u = torch.randn(shape, device=dev, generator=gen)
+        b = torch.randn(shape, device=dev, generator=gen)
+        w5 = laplacian_weights(n, dev)
+        points = math.prod(shape)
+
+        def k3(u=u, b=b):
+            return sk.kernel_jacobi_smooth(u, b, iters=2)
+
+        def conv(u=u, w5=w5):
+            return F.conv2d(u[:, None], w5, padding=1)
+
+        t = dict(ms=time_ms(k3), plain_ms=time_ms(lambda: sk.plain_jacobi_smooth(u, b, iters=2)),
+                 library_ms=time_ms(conv), device_ms=device_ms_per_call(k3, K3_NAME),
+                 library_device_ms=device_ms_per_call(conv),
+                 bound=bound(3 * 4 * points, 2 * 10 * points), shape=list(shape))
+        k3_timing[shape] = t
+        log(f"[kernels] K3 2 sweeps at {shape}: device {t['device_ms'] * 1e3:.3f} us per launch "
+            f"(profiler), {t['ms']:.4f} ms per call (CUDA events), twin {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound'][0] * 1e3:.3f} us ({t['bound'][1]}) = "
+            f"{100 * t['bound'][0] / max(t['device_ms'], 1e-9):.0f}% of the device time; "
+            f"F.conv2d L.u "
+            f"device {t['library_device_ms'] * 1e3:.3f} us, {t['library_ms']:.4f} ms per call; "
+            f"on {smi}")
     n = 640
-    u = torch.randn(1, n, n, device=dev, generator=gen)
-    b = torch.randn(1, n, n, device=dev, generator=gen)
-    h2 = (1.0 / (n - 1)) ** 2
-    w5 = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]],
-                      device=dev).div(h2).reshape(1, 1, 3, 3)
-    library_ms = time_ms(lambda: F.conv2d(u[:, None], w5, padding=1))
-    slab = n * n * 4
-    timing = {
-        "K2": dict(ms=time_ms(lambda: sk.kernel_residual(-1.0, u, b)),
-                   plain_ms=time_ms(lambda: sk.plain_residual(-1.0, u, b)),
-                   bound=bound(3 * slab, 8 * n * n)),
-        "K3": dict(ms=time_ms(lambda: sk.kernel_jacobi_smooth(u, b, iters=2)),
-                   plain_ms=time_ms(lambda: sk.plain_jacobi_smooth(u, b, iters=2)),
-                   bound=bound(3 * slab, 2 * 10 * n * n)),
-    }
-    for key, t in timing.items():
-        fn = ((lambda: sk.kernel_residual(-1.0, u, b)) if key == "K2"
-              else (lambda: sk.kernel_jacobi_smooth(u, b, iters=2)))
-        _, _, rows = profile(fn, reps=50)
-        t["device_ms"] = device_ms_of(rows, K2_NAME if key == "K2" else K3_NAME)
-        log(f"[kernels] {key} at 640^2 batch 1: device time per launch (profiler) "
-            f"{t['device_ms'] or 'not measured'} ms")
-        log(f"[kernels] {key} at 640^2 batch 1: kernel {t['ms']:.4f} ms, twin "
-            f"{t['plain_ms']:.4f} ms, F.conv2d L.u {library_ms:.4f} ms, bound "
-            f"{t['bound'][0]:.4f} ms ({t['bound'][1]}) on {smi}")
+    u, b = (torch.randn(1, n, n, device=dev, generator=gen) for _ in range(2))
+    sweeps = {}
+    for iters in (2, 4, 6):
+        def k3(iters=iters):
+            return sk.kernel_jacobi_smooth(u, b, iters=iters)
+
+        sk.reset_launch_counts()
+        k3()
+        per_call = sk.launch_counts()["kernel_jacobi_smooth"]
+        sweeps[iters] = dict(device_ms=device_ms_per_call(k3, K3_NAME), ms=time_ms(k3),
+                             launches=per_call)
+        log(f"[kernels] K3 {iters} sweeps at (1, 640, 640): {per_call} launch(es), device "
+            f"{sweeps[iters]['device_ms'] * 1e3:.3f} us per call, "
+            f"{sweeps[iters]['ms']:.4f} ms per call, on {smi}")
+
+    def k2():
+        return sk.kernel_residual(-1.0, u, b)
+
+    k2_timing = dict(ms=time_ms(k2), plain_ms=time_ms(lambda: sk.plain_residual(-1.0, u, b)),
+                     device_ms=device_ms_per_call(k2, K2_NAME),
+                     library_ms=k3_timing[(1, 640, 640)]["library_ms"],
+                     library_device_ms=k3_timing[(1, 640, 640)]["library_device_ms"],
+                     bound=bound(3 * 4 * 640 * 640, 8 * 640 * 640), shape=[1, 640, 640])
+    log(f"[kernels] K2 at (1, 640, 640): device {k2_timing['device_ms'] * 1e3:.3f} us per launch, "
+        f"{k2_timing['ms']:.4f} ms per call, twin {k2_timing['plain_ms']:.4f} ms, bound "
+        f"{k2_timing['bound'][0] * 1e3:.3f} us, on {smi}")
     lap("3 kernels")
 
     # ------------------------------------------------------------- 4. serve
@@ -486,7 +540,8 @@ def main() -> None:
         torch.cuda.synchronize()
     check(sk.launch_counts() == counts, "use_kernels=False launched a kernel")
     kernel_levels = [r for r in levels if r >= 160]
-    expected = {"kernel_apply_operator": 0, "kernel_residual": 2 * len(kernel_levels),
+    expected = {"kernel_apply_operator": 0, "kernel_pde_loss_forward": 0,
+                "kernel_pde_loss_backward": 0, "kernel_residual": 2 * len(kernel_levels),
                 "kernel_jacobi_smooth": 2 * 2 * len(kernel_levels)}
     log(f"[refine] launches {counts}, expected {expected}; wall {refine_ms:.1f} ms on {card}")
     check(counts == expected, f"launch counts {counts} != {expected}")
@@ -543,33 +598,138 @@ def main() -> None:
     for shape in [(32, 40, 40), (3, 41, 41)]:
         u, g = (torch.randn(shape, device=dev, generator=gen) for _ in range(2))
         theta = torch.rand(shape, device=dev, generator=gen) * 1.5 + 0.5
-        grads = {}
-        for use_kernel in (True, False):
-            x = u.clone().requires_grad_(True)
-            apply_operator(theta, x, use_kernel).backward(g)
-            grads[use_kernel] = x.grad
-        compare("K1", f"{shape} backward", grads[True], grads[False])
-    log(f"[K1] matches its twin forward (theta scalar and field) and backward at every shape "
-        f"(max rel err {worst['K1'][1]:.2e}, max abs err {worst['K1'][0]:.2e}; tol {tol})")
+        x = u.clone().requires_grad_(True)
+        sk.plain_apply_operator(theta, x).backward(g)
+        # the gradient of theta * L u is L(theta * g): the truncated L is symmetric
+        compare("K1", f"{shape} adjoint", sk.kernel_apply_operator(1.0, theta * g), x.grad)
+    log(f"[K1] matches its twin forward (theta scalar and field) and as its adjoint at every "
+        f"shape (max rel err {worst['K1'][1]:.2e}, max abs err {worst['K1'][0]:.2e}; tol {tol})")
+    # the operator and its adjoint, driven once outside the comparisons (no
+    # main path of this slice runs the operator: its row's launches are phase 10's)
+    u = torch.randn(32, 40, 40, device=dev, generator=gen)
+    theta = torch.rand(32, 40, 40, device=dev, generator=gen) * 1.5 + 0.5
+    sk.reset_launch_counts()
+    sk.kernel_apply_operator(1.0, theta * sk.kernel_apply_operator(theta, u))
+    torch.cuda.synchronize()
+    k1_op_launches = sk.launch_counts()["kernel_apply_operator"]
+    check(k1_op_launches == 2, f"operator and adjoint: {k1_op_launches} launches")
     k1_timing = {}
     for shape in [(32, 40, 40), (1, 640, 640)]:
-        n1 = shape[-1]
         u = torch.randn(shape, device=dev, generator=gen)
         theta = torch.rand(shape, device=dev, generator=gen) * 1.5 + 0.5
-        w5 = torch.tensor([[0.0, 1.0, 0.0], [1.0, -4.0, 1.0], [0.0, 1.0, 0.0]],
-                          device=dev).div((1.0 / (n1 - 1)) ** 2).reshape(1, 1, 3, 3)
-        points = shape[0] * n1 * n1
-        t = dict(ms=time_ms(lambda: sk.kernel_apply_operator(theta, u)),
-                 plain_ms=time_ms(lambda: sk.plain_apply_operator(theta, u)),
+        w5 = laplacian_weights(shape[-1], dev)
+        points = math.prod(shape)
+
+        def k1(theta=theta, u=u):
+            return sk.kernel_apply_operator(theta, u)
+
+        t = dict(ms=time_ms(k1), plain_ms=time_ms(lambda: sk.plain_apply_operator(theta, u)),
                  library_ms=time_ms(lambda: theta * F.conv2d(u[:, None], w5, padding=1)[:, 0]),
-                 bound=bound(3 * 4 * points, 7 * points))
-        _, _, rows = profile(lambda: sk.kernel_apply_operator(theta, u), reps=50)
-        t["device_ms"] = device_ms_of(rows, K1_NAME)
+                 bound=bound(3 * 4 * points, 7 * points), device_ms=device_ms_per_call(k1, K1_NAME),
+                 shape=list(shape))
         k1_timing[shape] = t
-        log(f"[K1] {shape} theta field: device time per launch (profiler) "
-            f"{t['device_ms'] or 'not measured'} ms; kernel {t['ms']:.4f} ms per call, twin "
-            f"{t['plain_ms']:.4f} ms, theta * F.conv2d (two calls) {t['library_ms']:.4f} ms, "
-            f"bound {t['bound'][0]:.5f} ms ({t['bound'][1]}) on {smi}")
+        log(f"[K1] operator {shape} theta field: device {t['device_ms'] * 1e3:.3f} us per launch "
+            f"(profiler); {t['ms']:.4f} ms per call, twin {t['plain_ms']:.4f} ms, theta * "
+            f"F.conv2d (two calls) {t['library_ms']:.4f} ms, bound {t['bound'][0] * 1e3:.3f} us "
+            f"({t['bound'][1]}) on {smi}")
+
+    # the fused physics loss: forward (loss + seed) and backward against their twins
+    def loss_data(shape, per_sample):
+        pred = torch.randn(shape[0], 1, *shape[1:], device=dev, generator=gen)
+        theta = torch.rand(shape, device=dev, generator=gen) * 1.5 + 0.5
+        f = torch.randn(shape, device=dev, generator=gen)
+        size = (shape[0], 1, 1) if per_sample else ()
+        u_mean = torch.randn(size, device=dev, generator=gen)
+        u_std, f_std = (torch.rand(size, device=dev, generator=gen) + 0.5 for _ in range(2))
+        return pred, theta, f, (u_mean, u_std, f_std)
+
+    loss_rel = 0.0
+    for shape in [(32, 40, 40), (1024, 40, 40), (32, 80, 80), (32, 160, 160), (3, 41, 41)]:
+        for per_sample in (False, True):
+            pred, theta, f, stats = loss_data(shape, per_sample)
+            g = torch.tensor(0.7, device=dev)
+            ref_loss, ref_seed = sk.plain_pde_residual_loss(pred, theta, f, *stats)
+            ref_grad = sk.plain_pde_residual_loss_backward(ref_seed, stats[1], g)
+            loss, seed = sk.kernel_pde_loss_forward(pred, theta, f, *stats)
+            grad = sk.kernel_pde_loss_backward(seed, stats[1], g)
+            what = f"{shape} {'per-sample' if per_sample else '0-d'} stats"
+            rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+            loss_rel = max(loss_rel, rel)
+            check(rel <= 1e-6, f"K1 loss {what}: {float(loss)} vs twin {float(ref_loss)}")
+            compare("K1 loss forward", f"{what} seed", seed, ref_seed)
+            compare("K1 loss backward", what, grad, ref_grad)
+    for shape in [(1024, 40, 40), (32, 160, 160)]:
+        pred, theta, f, stats = loss_data(shape, True)
+        g = torch.tensor(1.0, device=dev)
+        runs = []
+        for _ in range(2):
+            loss, seed = sk.kernel_pde_loss_forward(pred, theta, f, *stats)
+            runs.append((loss.clone(), seed, sk.kernel_pde_loss_backward(seed, stats[1], g)))
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"fused loss at {shape}: two calls differ")
+    log(f"[K1] fused loss matches its twins at every shape, 0-d and per-sample stats: loss "
+        f"within {loss_rel:.2e} relative (tol 1e-6), seed {worst['K1 loss forward'][1]:.2e} and "
+        f"gradient {worst['K1 loss backward'][1]:.2e} of their max (tol {tol}); loss, seed and "
+        f"gradient bit-identical over two calls")
+
+    loss_timing = {}
+    for shape in [(32, 40, 40), (32, 160, 160)]:
+        pred, theta, f, (u_mean, u_std, f_std) = loss_data(shape, True)
+        stats = NormStats(u_mean=u_mean, u_std=u_std, f_mean=u_mean, f_std=f_std,
+                          theta_mean=torch.zeros_like(u_mean), theta_std=torch.ones_like(u_std),
+                          theta_is_constant=torch.ones_like(u_std, dtype=torch.bool))
+        g = torch.tensor(1.0, device=dev)
+        _, seed = sk.kernel_pde_loss_forward(pred, theta, f, u_mean, u_std, f_std)
+        points = math.prod(shape)
+        w5 = laplacian_weights(shape[-1], dev)
+
+        def fwd(pred=pred, theta=theta, f=f, st=(u_mean, u_std, f_std)):
+            return sk.kernel_pde_loss_forward(pred, theta, f, *st)
+
+        def bwd(seed=seed, u_std=u_std, g=g):
+            return sk.kernel_pde_loss_backward(seed, u_std, g)
+
+        def fused_step(pred=pred, theta=theta, f=f, stats=stats):
+            pde_residual_loss(pred.detach().requires_grad_(True), theta, f, stats).backward()
+
+        def unfused_step(pred=pred, theta=theta, f=f, st=(u_mean, u_std, f_std)):
+            # the loss and its gradient unfused: elementwise launches around
+            # the operator kernel, the gradient by the operator's adjoint
+            r = (sk.kernel_apply_operator(theta, pred[:, 0] * st[1] + st[0]) - f) / st[2]
+            loss = torch.mean(r ** 2)
+            seed = (2.0 / r.numel()) * (r / st[2])
+            return loss, st[1] * sk.kernel_apply_operator(1.0, theta * seed)
+
+        t = {"shape": list(shape)}
+        for label, fn in (("fused_step", fused_step), ("unfused_step", unfused_step)):
+            _, busy, rows = profile(fn, reps=50)
+            t[label] = dict(device_ms=busy, launches=sum(r[2] for r in rows), ms=time_ms(fn))
+        t["forward"] = dict(
+            ms=time_ms(fwd), device_ms=device_ms_per_call(fwd, K1_FWD_NAME),
+            plain_ms=time_ms(lambda: sk.plain_pde_residual_loss(pred, theta, f, u_mean, u_std,
+                                                                f_std)),
+            bound=bound(4 * 4 * points, 16 * points), library_ms=None,
+            yardstick_ms=time_ms(lambda: F.conv2d(pred, w5, padding=1)))
+        t["backward"] = dict(
+            ms=time_ms(bwd), device_ms=device_ms_per_call(bwd, K1_BWD_NAME),
+            plain_ms=time_ms(lambda: sk.plain_pde_residual_loss_backward(seed, u_std, g)),
+            bound=bound(2 * 4 * points, 9 * points), library_ms=None,
+            yardstick_ms=t["forward"]["yardstick_ms"])
+        step_bound = t["forward"]["bound"][0] + t["backward"]["bound"][0]
+        loss_timing[shape] = t
+        fw, bw, fs_, p2 = t["forward"], t["backward"], t["fused_step"], t["unfused_step"]
+        log(f"[K1] loss {shape}: forward device {fw['device_ms'] * 1e3:.3f} us per launch, "
+            f"{fw['ms']:.4f} ms per call, twin {fw['plain_ms']:.4f} ms, bound "
+            f"{fw['bound'][0] * 1e3:.3f} us; backward device {bw['device_ms'] * 1e3:.3f} us, "
+            f"{bw['ms']:.4f} ms per call, twin {bw['plain_ms']:.4f} ms, bound "
+            f"{bw['bound'][0] * 1e3:.3f} us; F.conv2d L.pred yardstick {fw['yardstick_ms']:.4f} "
+            f"ms; on {smi}")
+        log(f"[K1] loss {shape} per train step (forward + backward through pde_residual_loss): "
+            f"device {fs_['device_ms'] * 1e3:.3f} us in {fs_['launches']:.0f} launches, "
+            f"{fs_['ms']:.4f} ms per step; bound {step_bound * 1e3:.3f} us; unfused: "
+            f"device {p2['device_ms'] * 1e3:.3f} us in {p2['launches']:.0f} launches, "
+            f"{p2['ms']:.4f} ms per step; on {smi}")
     lap("8 K1")
 
     # ---------------------------------------------------------- 9. generate
@@ -580,26 +740,43 @@ def main() -> None:
     trained = phase_train(dev, card, smi)
     lap("10 train")
 
-    t = k1_timing[(32, 40, 40)]
-    timing["K1"] = dict(t, shape=[32, 40, 40])
-    for key in ("K2", "K3"):
-        timing[key].update(library_ms=library_ms, shape=[1, 640, 640])
-    launches = {"K1": trained["k1_launches"], "K2": counts["kernel_residual"],
-                "K3": counts["kernel_jacobi_smooth"]}
+    t40 = loss_timing[(32, 40, 40)]
+    timing = {"K1": dict(k1_timing[(32, 40, 40)],
+                         launches=trained["launches"]["kernel_apply_operator"],
+                         check_launches=k1_op_launches,
+                         path="train CLI, 2 epochs (phase 10), which no longer runs it; "
+                              "check_launches: operator and adjoint driven once (phase 8)"),
+              "K1 loss forward": dict(t40["forward"], shape=t40["shape"],
+                                      launches=trained["launches"]["kernel_pde_loss_forward"],
+                                      path="train CLI, 2 epochs (phase 10)"),
+              "K1 loss backward": dict(t40["backward"], shape=t40["shape"],
+                                       launches=trained["launches"]["kernel_pde_loss_backward"],
+                                       path="train CLI, 2 epochs (phase 10)"),
+              "K2": dict(k2_timing, launches=counts["kernel_residual"],
+                         path="refined scene to 640^2 (phase 5)"),
+              "K3": dict(k3_timing[(1, 640, 640)], launches=counts["kernel_jacobi_smooth"],
+                         path="refined scene to 640^2 (phase 5)")}
+    names = {"K1": "kernel_apply_operator", "K1 loss forward": "kernel_pde_loss_forward",
+             "K1 loss backward": "kernel_pde_loss_backward", "K2": "kernel_residual",
+             "K3": "kernel_jacobi_smooth"}
+    lines = {"K1": 100, "K1 loss forward": 100, "K1 loss backward": 100, "K2": 115, "K3": 131}
     rows = []
-    for key, name, line in (("K1", "kernel_apply_operator", 100), ("K2", "kernel_residual", 115),
-                            ("K3", "kernel_jacobi_smooth", 131)):
+    for key in keys:
         t = timing[key]
         rows.append({
-            "name": f"{key} {name}", "route": "cuda",
+            "name": f"{key} {names[key]}", "route": "cuda",
             "source": "superresolution_for_pdes_tpu_torch/csrc/stencil.cu",
-            "replaces": f"superresolution_for_pdes_tpu/ops/pallas_stencil.py:{line}",
-            "launches": launches[key],
+            "replaces": f"superresolution_for_pdes_tpu/ops/pallas_stencil.py:{lines[key]}",
+            "launches": t["launches"], "path": t["path"],
             "max_abs_err": worst[key][0], "max_rel_err": worst[key][1],
-            "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "shape": t["shape"],
         })
+        if "check_launches" in t:
+            rows[-1]["check_launches"] = t["check_launches"]
+    rows[1]["loss_max_rel_err"] = loss_rel
+    log(f"[summary] K3 timing {k3_timing}; K3 sweeps {sweeps}; loss timing {loss_timing}")
     log(f"[summary] generate {generated}; train {trained['summary']}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -2,8 +2,13 @@
 of ``ops/pallas_stencil.py``).
 
 * :func:`kernel_apply_operator` (K1) -- ``theta * (S(u) - 4u) / h^2``,
-  replacing ``pallas_apply_operator``; ``theta`` may be a scalar. The physics
-  loss runs it forward and, with ``theta = 1``, backward.
+  replacing ``pallas_apply_operator``; ``theta`` may be a scalar.
+* :func:`kernel_pde_loss_forward` and :func:`kernel_pde_loss_backward` (K1
+  with the physics loss fused in) -- the loss
+  ``mean(((theta * L(pred * u_std + u_mean) - f) / f_std)^2)`` with the
+  backward's seed ``theta * r / f_std`` in one call (the fused kernel and a
+  one-block launch that sums its partials), and its gradient
+  ``u_std * L((2 g / N) * seed)`` in one launch.
 * :func:`kernel_residual` (K2) -- ``f - theta * (S(u) - 4u) / h^2``, replacing
   ``pallas_residual``; ``theta`` may be a scalar, so the V-cycle's
   ``theta == -1`` call reads no theta field.
@@ -13,18 +18,20 @@ of ``ops/pallas_stencil.py``).
 The CUDA source is ``csrc/stencil.cu`` (design and bound noted there). On a
 CUDA tensor a wrapper launches its kernel on the current stream or raises; on
 a CPU tensor it runs the plain twin (:func:`plain_apply_operator`,
+:func:`plain_pde_residual_loss`, :func:`plain_pde_residual_loss_backward`,
 :func:`plain_residual`, :func:`plain_jacobi_smooth`), which computes the same
-arithmetic in the same
-order with the port's ``ops/stencil.py``. Each wrapper counts its kernel
-launches in ``.launches``; the twins count nothing.
+arithmetic in the same order with the port's ``ops/stencil.py``. Each wrapper
+counts its kernel launches in ``.launches``; the twins count nothing.
 
 Leading axes are flattened into one batch axis, as the Pallas wrappers do.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -63,11 +70,21 @@ def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
 
 
+def _check_device(name: str, u: torch.Tensor) -> None:
+    if u.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {u.device}")
+
+
 def _batch(u: torch.Tensor) -> int:
     batch = u.numel() // (u.shape[-1] * u.shape[-1])
     if not 1 <= batch <= 65535:
         raise ValueError(f"batch of {batch} slabs is outside the grid's z range 1..65535")
     return batch
+
+
+def _vec(n: int, *tensors: torch.Tensor) -> int:
+    """1 when the kernels may move float4: rows of 4k floats, 16-byte aligned."""
+    return int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
 def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
@@ -78,28 +95,64 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def _on(t: torch.Tensor):
+    """``t``'s device made current for a launch, unless it already is."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
 def _raise_on(name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {code}")
 
 
+class _Lib(NamedTuple):
+    apply_operator: Callable
+    pde_loss_forward: Callable
+    pde_loss_backward: Callable
+    residual: Callable
+    jacobi: Callable
+    max_fused_iters: int
+
+
 @functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    """``csrc/stencil.cu``'s library (built at the first call) with its C
-    signatures declared."""
+def _lib() -> _Lib:
+    """``csrc/stencil.cu``'s entry points (built at the first call), resolved
+    once with their C signatures declared."""
     from superresolution_for_pdes_tpu_torch.ops._build import load_library
 
     lib = load_library("stencil")
     ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.srpde_apply_operator.argtypes = [ptr, f, ptr, ptr, i, i, f, ptr]
-    lib.srpde_apply_operator.restype = i
-    lib.srpde_residual.argtypes = [ptr, f, ptr, ptr, ptr, i, i, f, ptr]
-    lib.srpde_residual.restype = i
-    lib.srpde_jacobi.argtypes = [ptr, ptr, ptr, i, i, f, f, i, ptr]
-    lib.srpde_jacobi.restype = i
-    lib.srpde_max_fused_iters.argtypes = []
-    lib.srpde_max_fused_iters.restype = i
-    return lib
+    signatures = {
+        "srpde_apply_operator": [ptr, f, ptr, ptr, i, i, f, i, ptr],
+        "srpde_pde_loss_forward": [ptr, ptr, ptr, ptr, i, ptr, i, ptr, i, ptr, ptr, ptr,
+                                   i, i, f, i, ptr],
+        "srpde_pde_loss_backward": [ptr, ptr, i, ptr, ptr, i, i, f, i, ptr],
+        "srpde_residual": [ptr, f, ptr, ptr, ptr, i, i, f, ptr],
+        "srpde_jacobi": [ptr, ptr, ptr, i, i, f, f, i, i, ptr],
+        "srpde_max_fused_iters": [],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, i
+    return _Lib(lib.srpde_apply_operator, lib.srpde_pde_loss_forward,
+                lib.srpde_pde_loss_backward, lib.srpde_residual, lib.srpde_jacobi,
+                int(lib.srpde_max_fused_iters()))
+
+
+def _per_slab(name: str, stat: torch.Tensor, batch: int) -> torch.Tensor:
+    """A statistic as one value (0-d) or one per slab (``(batch, 1, 1)``)."""
+    if stat.numel() == 1:
+        return stat.reshape(())
+    if stat.numel() == batch:
+        return stat.reshape(batch, 1, 1)
+    raise ValueError(f"{name} has {stat.numel()} values; it takes 1 or one per slab ({batch})")
+
+
+def _count(t: torch.Tensor) -> torch.Tensor:
+    """``t.numel()`` as a float32 0-d tensor on ``t``'s device."""
+    return torch.tensor(np.float32(t.numel()), dtype=t.dtype, device=t.device)
 
 
 # ----------------------------------------------------------------- plain twins
@@ -108,6 +161,40 @@ def plain_apply_operator(theta, u: torch.Tensor, h: float | None = None) -> torc
     arithmetic, ``/ h^2`` included)."""
     h2 = torch.tensor(_h2(u.shape[-1], h), dtype=u.dtype, device=u.device)
     return theta * ((shift_sum(u) - 4.0 * u) / h2)
+
+
+def plain_pde_residual_loss(pred: torch.Tensor, theta: torch.Tensor, f: torch.Tensor,
+                            u_mean: torch.Tensor, u_std: torch.Tensor, f_std: torch.Tensor,
+                            h: float | None = None, seed: bool = True):
+    """Plain PyTorch physics loss ``mean(r^2)``,
+    ``r = (theta * L(pred * u_std + u_mean) - f) / f_std``, and (with
+    ``seed``) the backward's seed ``theta * r / f_std`` in ``theta``'s shape.
+
+    ``pred`` holds ``theta.numel()`` values in slabs of ``theta``'s last two
+    axes (``(B, 1, H, W)`` against ``(B, H, W)``); each statistic is one value
+    or one per slab. Returns ``(loss, seed or None)``; differentiable.
+    """
+    n = theta.shape[-1]
+    theta3 = theta.reshape(-1, n, n)
+    batch = theta3.shape[0]
+    u = pred.reshape(theta3.shape) * _per_slab("u_std", u_std, batch) \
+        + _per_slab("u_mean", u_mean, batch)
+    fs = _per_slab("f_std", f_std, batch)
+    r = (plain_apply_operator(theta3, u, h) - f.reshape(theta3.shape)) / fs
+    loss = torch.mean(r ** 2)
+    return loss, (((theta3 * r) / fs).reshape(theta.shape) if seed else None)
+
+
+def plain_pde_residual_loss_backward(seed: torch.Tensor, u_std: torch.Tensor,
+                                     g_out: torch.Tensor, h: float | None = None) -> torch.Tensor:
+    """Plain PyTorch gradient of the physics loss with respect to ``pred``:
+    ``u_std * L((2 g_out / N) * seed)`` in ``seed``'s shape (the truncated
+    ``L`` is symmetric)."""
+    n = seed.shape[-1]
+    s3 = seed.reshape(-1, n, n)
+    c = (2.0 * g_out.reshape(())) / _count(seed)
+    grad = _per_slab("u_std", u_std, s3.shape[0]) * plain_apply_operator(1.0, c * s3, h)
+    return grad.reshape(seed.shape)
 
 
 def plain_residual(theta, u: torch.Tensor, f: torch.Tensor,
@@ -146,19 +233,88 @@ def kernel_apply_operator(theta, u: torch.Tensor, h: float | None = None) -> tor
     _check_slabs("kernel_apply_operator", u, **fields)
     if u.device.type == "cpu":
         return plain_apply_operator(theta, u, h)
-    if u.device.type != "cuda":
-        raise ValueError(f"kernel_apply_operator: unsupported device {u.device}")
+    _check_device("kernel_apply_operator", u)
     _check_cuda("kernel_apply_operator", u, *fields.values())
     n = u.shape[-1]
     out = torch.empty_like(u)
-    theta_scalar = float(theta) if scalar else 0.0
-    with torch.cuda.device(u.device):
-        code = _lib().srpde_apply_operator(
-            _ptr(None if scalar else theta), theta_scalar, _ptr(u), _ptr(out),
-            _batch(u), n, float(_h2(n, h)), _stream(u))
+    with _on(u):
+        code = _lib().apply_operator(
+            _ptr(None if scalar else theta), float(theta) if scalar else 0.0, _ptr(u), _ptr(out),
+            _batch(u), n, float(_h2(n, h)), _vec(n, u, out, *fields.values()), _stream(u))
     _raise_on("kernel_apply_operator", code)
     kernel_apply_operator.launches += 1
     return out
+
+
+def _stats_for_kernel(name: str, theta: torch.Tensor, batch: int, **stats: torch.Tensor):
+    """[(stat, stride)] for the kernel: stride 0 for one value, 1 per slab."""
+    out = []
+    for key, stat in stats.items():
+        if stat.device != theta.device:
+            raise ValueError(f"{name}: {key} is on {stat.device}, theta on {theta.device}")
+        _check_cuda(name, stat)
+        out.append((stat, 0 if _per_slab(key, stat, batch).ndim == 0 else 1))
+    return out
+
+
+def kernel_pde_loss_forward(pred: torch.Tensor, theta: torch.Tensor, f: torch.Tensor,
+                            u_mean: torch.Tensor, u_std: torch.Tensor, f_std: torch.Tensor,
+                            h: float | None = None, seed: bool = True):
+    """K1 with the physics loss fused in: ``(loss, seed or None)`` as
+    :func:`plain_pde_residual_loss` gives them. One call launches the fused
+    kernel, which writes a partial sum per block into this call's scratch,
+    and a one-block kernel that adds them in a fixed order: the same inputs
+    give the same bits, and no state is shared between calls or streams."""
+    name = "kernel_pde_loss_forward"
+    _check_slabs(name, theta, f=f)
+    if pred.numel() != theta.numel() or pred.shape[-2:] != theta.shape[-2:]:
+        raise ValueError(f"{name}: pred {tuple(pred.shape)} does not hold theta's "
+                         f"{tuple(theta.shape)} slabs")
+    if pred.device != theta.device:
+        raise ValueError(f"{name}: pred is on {pred.device}, theta on {theta.device}")
+    if theta.device.type == "cpu":
+        return plain_pde_residual_loss(pred, theta, f, u_mean, u_std, f_std, h, seed)
+    _check_device(name, theta)
+    _check_cuda(name, pred, theta, f)
+    n, batch = theta.shape[-1], _batch(theta)
+    (um, um_s), (us, us_s), (fs, fs_s) = _stats_for_kernel(
+        name, theta, batch, u_mean=u_mean, u_std=u_std, f_std=f_std)
+    loss = torch.empty((), dtype=theta.dtype, device=theta.device)
+    partial = torch.empty(batch * n, dtype=theta.dtype, device=theta.device)  # >= blocks
+    s = torch.empty_like(theta) if seed else None
+    vec = _vec(n, pred, theta, f, *([s] if seed else []))
+    with _on(theta):
+        code = _lib().pde_loss_forward(
+            _ptr(pred), _ptr(theta), _ptr(f), _ptr(um), um_s, _ptr(us), us_s, _ptr(fs), fs_s,
+            _ptr(s), _ptr(partial), _ptr(loss), batch, n, float(_h2(n, h)), vec,
+            _stream(theta))
+    _raise_on(name, code)
+    kernel_pde_loss_forward.launches += 1
+    return loss, s
+
+
+def kernel_pde_loss_backward(seed: torch.Tensor, u_std: torch.Tensor, g_out: torch.Tensor,
+                             h: float | None = None) -> torch.Tensor:
+    """K1's physics-loss backward: ``u_std * L((2 g_out / N) * seed)`` in one
+    launch, as :func:`plain_pde_residual_loss_backward` gives it."""
+    name = "kernel_pde_loss_backward"
+    _check_slabs(name, seed)
+    if g_out.numel() != 1 or g_out.device != seed.device:
+        raise ValueError(f"{name}: g_out must be one value on {seed.device}")
+    if seed.device.type == "cpu":
+        return plain_pde_residual_loss_backward(seed, u_std, g_out, h)
+    _check_device(name, seed)
+    _check_cuda(name, seed, g_out)
+    n, batch = seed.shape[-1], _batch(seed)
+    ((us, us_s),) = _stats_for_kernel(name, seed, batch, u_std=u_std)
+    grad = torch.empty_like(seed)
+    with _on(seed):
+        code = _lib().pde_loss_backward(
+            _ptr(seed), _ptr(us), us_s, _ptr(g_out), _ptr(grad), batch, n, float(_h2(n, h)),
+            _vec(n, seed, grad), _stream(seed))
+    _raise_on(name, code)
+    kernel_pde_loss_backward.launches += 1
+    return grad
 
 
 def kernel_residual(theta, u: torch.Tensor, f: torch.Tensor,
@@ -172,14 +328,13 @@ def kernel_residual(theta, u: torch.Tensor, f: torch.Tensor,
     _check_slabs("kernel_residual", u, **fields)
     if u.device.type == "cpu":
         return plain_residual(theta, u, f, h)
-    if u.device.type != "cuda":
-        raise ValueError(f"kernel_residual: unsupported device {u.device}")
+    _check_device("kernel_residual", u)
     _check_cuda("kernel_residual", u, *fields.values())
     n = u.shape[-1]
     out = torch.empty_like(u)
     theta_scalar = float(theta) if scalar else 0.0
     with torch.cuda.device(u.device):
-        code = _lib().srpde_residual(
+        code = _lib().residual(
             _ptr(None if scalar else theta), theta_scalar, _ptr(u), _ptr(f), _ptr(out),
             _batch(u), n, float(_h2(n, h)), _stream(u))
     _raise_on("kernel_residual", code)
@@ -198,21 +353,20 @@ def kernel_jacobi_smooth(u: torch.Tensor, b: torch.Tensor, h: float | None = Non
         raise ValueError(f"kernel_jacobi_smooth: iters must be >= 0, got {iters}")
     if u.device.type == "cpu":
         return plain_jacobi_smooth(u, b, h, omega, iters)
-    if u.device.type != "cuda":
-        raise ValueError(f"kernel_jacobi_smooth: unsupported device {u.device}")
+    _check_device("kernel_jacobi_smooth", u)
     _check_cuda("kernel_jacobi_smooth", u, b)
-    n = u.shape[-1]
+    n, batch = u.shape[-1], _batch(u)
     h2 = _h2(n, h)
     scale = float(_jacobi_scale(h2, omega))
-    with torch.cuda.device(u.device):
-        lib = _lib()
-        fused = lib.srpde_max_fused_iters()
+    lib = _lib()
+    with _on(u):
+        stream = _stream(u)
         done = 0
         while done < iters:
-            k = min(fused, iters - done)
+            k = min(lib.max_fused_iters, iters - done)
             out = torch.empty_like(u)
-            code = lib.srpde_jacobi(_ptr(u), _ptr(b), _ptr(out), _batch(u), n,
-                                    float(h2), scale, k, _stream(u))
+            code = lib.jacobi(_ptr(u), _ptr(b), _ptr(out), batch, n, float(h2), scale, k,
+                              _vec(n, u, b, out), stream)
             _raise_on("kernel_jacobi_smooth", code)
             kernel_jacobi_smooth.launches += 1
             u = out
@@ -221,10 +375,13 @@ def kernel_jacobi_smooth(u: torch.Tensor, b: torch.Tensor, h: float | None = Non
 
 
 kernel_apply_operator.launches = 0
+kernel_pde_loss_forward.launches = 0
+kernel_pde_loss_backward.launches = 0
 kernel_residual.launches = 0
 kernel_jacobi_smooth.launches = 0
 
-KERNELS = (kernel_apply_operator, kernel_residual, kernel_jacobi_smooth)
+KERNELS = (kernel_apply_operator, kernel_pde_loss_forward, kernel_pde_loss_backward,
+           kernel_residual, kernel_jacobi_smooth)
 
 
 def reset_launch_counts() -> None:

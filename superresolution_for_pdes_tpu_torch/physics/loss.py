@@ -3,13 +3,15 @@
 
     L_pde = mean( ((diag(theta) L u_pred - f) / f_std)^2 )
 
-on the denormalized prediction, with the truncated 5-point ``L`` the training
-data was generated from. ``theta * (L u)`` is the hand-written kernel K1
-(:func:`~superresolution_for_pdes_tpu_torch.ops.stencil_kernels.kernel_apply_operator`)
-inside a ``torch.autograd.Function``: the truncated ``L`` is symmetric, so the
-gradient with respect to ``u`` of ``<g, theta * L u>`` is ``L (theta * g)``,
-which is K1 again with scalar ``theta = 1``. theta and f are data and get no
-gradient.
+on the denormalized prediction ``u_pred = pred * u_std + u_mean``, with the
+truncated 5-point ``L`` the training data was generated from. The whole loss
+is one call of the hand-written kernel K1 with the loss fused in
+(:func:`~superresolution_for_pdes_tpu_torch.ops.stencil_kernels.kernel_pde_loss_forward`),
+and its gradient one launch
+(:func:`~superresolution_for_pdes_tpu_torch.ops.stencil_kernels.kernel_pde_loss_backward`):
+the truncated ``L`` is symmetric, so the gradient with respect to ``pred`` is
+``u_std * L((2 g / N) * theta * r / f_std)``. theta, f and the statistics are
+data and get no gradient.
 """
 
 from __future__ import annotations
@@ -18,37 +20,31 @@ import torch
 
 from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
 from superresolution_for_pdes_tpu_torch.ops.stencil_kernels import (
-    kernel_apply_operator,
-    plain_apply_operator,
+    kernel_pde_loss_backward,
+    kernel_pde_loss_forward,
+    plain_pde_residual_loss,
+    plain_pde_residual_loss_backward,
 )
 
 
-class _ApplyOperator(torch.autograd.Function):
-    """``theta * (L u)`` with the gradient ``L (theta * g)`` for ``u``."""
+class _PdeResidualLoss(torch.autograd.Function):
+    """The physics loss of ``pred``: one fused forward call, one backward
+    launch."""
 
     @staticmethod
-    def forward(ctx, theta: torch.Tensor, u: torch.Tensor, use_kernel: bool) -> torch.Tensor:
-        if theta.requires_grad:
-            raise ValueError("pde_residual_loss: theta is data and takes no gradient")
-        theta = theta.contiguous()
-        ctx.save_for_backward(theta)
-        ctx.op = kernel_apply_operator if use_kernel else plain_apply_operator
-        return ctx.op(theta, u.contiguous())
+    def forward(ctx, pred, theta, f, u_mean, u_std, f_std, use_kernel: bool):
+        forward = kernel_pde_loss_forward if use_kernel else plain_pde_residual_loss
+        ctx.backward_fn = kernel_pde_loss_backward if use_kernel else plain_pde_residual_loss_backward
+        loss, seed = forward(pred.contiguous(), theta, f, u_mean, u_std, f_std)
+        ctx.save_for_backward(seed, u_std)
+        ctx.pred_shape = pred.shape
+        return loss
 
     @staticmethod
-    def backward(ctx, grad: torch.Tensor):
-        (theta,) = ctx.saved_tensors
-        return None, ctx.op(1.0, (theta * grad).contiguous()), None
-
-
-def apply_operator(theta: torch.Tensor, u: torch.Tensor,
-                   use_kernel: bool | None = None) -> torch.Tensor:
-    """Differentiable ``theta * (L u)`` over the last two axes.
-
-    ``use_kernel``: ``None`` or ``True`` runs K1 (its plain twin for a CPU
-    tensor), ``False`` the plain twin on any device.
-    """
-    return _ApplyOperator.apply(theta, u, use_kernel is not False)
+    def backward(ctx, g: torch.Tensor):
+        seed, u_std = ctx.saved_tensors
+        grad = ctx.backward_fn(seed, u_std, g.contiguous())
+        return grad.reshape(ctx.pred_shape), None, None, None, None, None, None
 
 
 def pde_residual_loss(pred_norm: torch.Tensor, theta_fine: torch.Tensor, f_fine: torch.Tensor,
@@ -59,8 +55,19 @@ def pde_residual_loss(pred_norm: torch.Tensor, theta_fine: torch.Tensor, f_fine:
         pred_norm: model output ``(B, 1, H, W)`` in normalized space.
         theta_fine / f_fine: physical-scale coefficient and forcing ``(B, H, W)``.
         stats: normalization statistics, 0-d or ``(B, 1, 1)``.
-        use_kernel: as in :func:`apply_operator`.
+        use_kernel: ``None`` or ``True`` runs the fused K1 kernels (their
+            plain twins for CPU tensors), ``False`` the plain twins on any
+            device. Without a gradient to take (``torch.no_grad()``, or a
+            ``pred_norm`` that needs none) the forward writes no seed.
     """
-    u_pred = stats.denormalize_u(pred_norm[:, 0])
-    resid = (apply_operator(theta_fine, u_pred, use_kernel) - f_fine) / stats.f_std
-    return torch.mean(resid ** 2)
+    data = {"theta": theta_fine, "f": f_fine, "u_mean": stats.u_mean, "u_std": stats.u_std,
+            "f_std": stats.f_std}
+    for name, t in data.items():
+        if t.requires_grad:
+            raise ValueError(f"pde_residual_loss: {name} is data and takes no gradient")
+    args = tuple(t.contiguous() for t in data.values())
+    kernel = use_kernel is not False
+    if torch.is_grad_enabled() and pred_norm.requires_grad:
+        return _PdeResidualLoss.apply(pred_norm, *args, kernel)
+    forward = kernel_pde_loss_forward if kernel else plain_pde_residual_loss
+    return forward(pred_norm.contiguous(), *args, seed=False)[0]

@@ -36,6 +36,14 @@ def _nchw(x):
     return np.moveaxis(np_(x), -1, -3)
 
 
+@pytest.fixture
+def rng():
+    """Each test's own seeded draws. The suite's shared generator would hand
+    these tests whatever is left after the files that ran before them in the
+    same worker, so their inputs would change with the scheduling."""
+    return np.random.default_rng(42)
+
+
 # ------------------------------------------------------------ normalization
 def _stats_close(ours, ref, rel=1e-6):
     """Stds to ``rel``; means to ``rel`` of their field's std (a mean near 0

@@ -82,7 +82,7 @@ def test_residual_twin_matches_pallas(n, field_theta, rng):
 
 
 @pytest.mark.parametrize("n", [20, 41])
-@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("iters", [1, 2, 3, 4, 6])
 def test_jacobi_twin_matches_pallas(n, iters, rng):
     u, b = f32(rng, 2, n, n), f32(rng, 2, n, n)
     ref = pallas_jacobi_smooth(jnp.asarray(u), jnp.asarray(b), iters=iters, interpret=True)
@@ -102,8 +102,8 @@ def test_cpu_wrappers_run_twins_and_count_nothing(rng):
     for iters in (0, 2, 5):
         assert torch.equal(sk.kernel_jacobi_smooth(u, f, iters=iters, omega=0.7),
                            sk.plain_jacobi_smooth(u, f, iters=iters, omega=0.7))
-    assert sk.launch_counts() == {"kernel_apply_operator": 0, "kernel_residual": 0,
-                                  "kernel_jacobi_smooth": 0}
+    assert set(sk.launch_counts()) == {fn.__name__ for fn in sk.KERNELS}
+    assert sum(sk.launch_counts().values()) == 0
 
 
 def test_wrappers_reject_bad_shapes(rng):
