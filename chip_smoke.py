@@ -7,22 +7,26 @@ Phases (any failed check raises, and the script exits non-zero):
 
 1. device -- the card's name and power limit; TF32 off for matmuls and cuDNN;
 2. build  -- ``nvcc`` builds every ``csrc/*.cu`` of the port (sm_90a);
-3. kernels -- K2 (``kernel_residual``) and K3 (``kernel_jacobi_smooth``, 1 to
-   6 sweeps) against their plain PyTorch twins at the refine path's shapes
-   plus ragged ones; K3's device time per call (profiler), time per call
-   (CUDA events), twin and bound at (1, 160^2), (1, 320^2), (1, 640^2) and
-   (4, 640^2) beside a ``F.conv2d`` 5-point yardstick's device time and time
-   per call; K3 at 2, 4 and 6 sweeps per call; K2 at 640^2;
+3. kernels -- K2 (``kernel_residual``, theta scalar and field), K3
+   (``kernel_jacobi_smooth``, 1 to 6 sweeps) and the fused pre-smooth and
+   residual (``kernel_smooth_residual``, 0 to 5 sweeps) against their plain
+   PyTorch twins at the refine path's shapes plus ragged ones; the device
+   time per launch (profiler), time per call (CUDA events), twin and bound of
+   K3 (2 sweeps), K2 (scalar theta) and the fused kernel (2 sweeps), beside
+   the pair it replaces (K3 then K2, two calls), at (1, 160^2), (1, 320^2),
+   (1, 640^2) and (4, 640^2), with a ``F.conv2d`` 5-point yardstick's device
+   time and time per call; K3 at 2, 4 and 6 sweeps per call;
 4. serve  -- four full-width 5-channel BatchNorm experts from seeded
    generators, frozen into a bundle with the champion manifest (tile stats,
    tiles 40/80/80, grid gains) and served by ``deploy.run_bundle`` on one
    scene to 640^2;
 5. refine -- the same bundle through ``ml_cascade(..., refine_cycles=2)``
    with the stencil kernels (launch counts reset just before and read just
-   after) and with ``use_kernels=False``; the fields must agree and refinement
-   must lower the error against the exact solve at 160, 320 and 640;
+   after: 6 fused pre-smooth and residual, 6 K3 post-smooths, 0 K2) and with
+   ``use_kernels=False``; the fields must agree and refinement must lower the
+   error against the exact solve at 160, 320 and 640;
 6. multigrid -- ``solve_poisson_mg`` at 640^2, batch 4, 12 cycles, kernels on,
-   against the DST solve;
+   against the DST solve (12 fused launches and 12 K3);
 7. profile -- ``torch.profiler`` device time of the served and the refined
    cascade to 640^2, and the device busy share;
 8. K1 -- ``kernel_apply_operator`` against its twin at the training path's
@@ -124,7 +128,9 @@ def profile(fn, reps: int = 1):
     return wall, sum(r[1] for r in rows), rows
 
 
-K1_NAME, K2_NAME, K3_NAME = "pde_operator_kernel", "residual_kernel", "jacobi_kernel"
+K1_NAME = "pde_operator_kernel"
+# K3, and K2 with the fused pre-smooth and residual: two entry points of one template
+K3_NAME, K2_NAME = "jacobi_kernel", "smooth_residual_kernel"
 # the loss forward is two kernels: pde_loss_forward_kernel and its one-block sum
 K1_FWD_NAME, K1_BWD_NAME = "pde_loss_forward", "pde_loss_backward_kernel"
 UNFUSED_LAUNCHES_PER_STEP = 455  # a train step with the loss unfused (PERF.md): ~18 of them
@@ -277,7 +283,7 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
     steps, chunks = sum(hist["train_steps"]), sum(hist["eval_chunks"])
     expected = {"kernel_apply_operator": 0, "kernel_pde_loss_forward": steps + chunks,
                 "kernel_pde_loss_backward": steps, "kernel_residual": 0,
-                "kernel_jacobi_smooth": 0}
+                "kernel_jacobi_smooth": 0, "kernel_smooth_residual": 0}
     log(f"[train] 2 epochs: {steps} train steps {hist['train_steps']}, {chunks} validation "
         f"chunks {hist['eval_chunks']}; launches {counts}; expected loss forward {steps} + "
         f"{chunks}, backward {steps}, operator 0")
@@ -405,7 +411,7 @@ def main() -> None:
     # ----------------------------------------------------------- 3. kernels
     gen = torch.Generator(device=dev).manual_seed(0)
     tol = 4e-6
-    keys = ("K1", "K1 loss forward", "K1 loss backward", "K2", "K3")
+    keys = ("K1", "K1 loss forward", "K1 loss backward", "K2", "K3", "K3+K2")
     worst = {key: [0.0, 0.0] for key in keys}  # [max_abs_err, max_rel_err]
 
     def compare(key, what, out, ref):
@@ -417,6 +423,7 @@ def main() -> None:
         check(err <= tol * scale,
               f"{key} {what}: max|kernel - twin| {err:.3e} > {tol} * {scale:.3e}")
 
+    sk.reset_launch_counts()
     for shape in [(1, 160, 160), (1, 320, 320), (1, 640, 640), (4, 640, 640), (8, 161, 161),
                   (3, 41, 41), (1, 1023, 1023)]:
         u = torch.randn(shape, device=dev, generator=gen)
@@ -428,10 +435,22 @@ def main() -> None:
         for iters in (1, 2, 3, 4, 6):
             compare("K3", f"{shape} iters {iters}", sk.kernel_jacobi_smooth(u, f, iters=iters),
                     sk.plain_jacobi_smooth(u, f, iters=iters))
-    log(f"[kernels] K2/K3 match their twins at every shape, K3 at 1-6 sweeps "
-        f"(max rel err K2 {worst['K2'][1]:.2e}, K3 {worst['K3'][1]:.2e}; tol {tol})")
+        for iters in (0, 1, 2, 3, 5):
+            got, ref = (fn(u, f, iters=iters)
+                        for fn in (sk.kernel_smooth_residual, sk.plain_smooth_residual))
+            for part, out, ref_part in zip(("u", "r"), got, ref):
+                compare("K3+K2", f"{shape} iters {iters} {part}", out, ref_part)
+    torch.cuda.synchronize()
+    k2_check_launches = sk.launch_counts()["kernel_residual"]
+    log(f"[kernels] K2/K3 and the fused pre-smooth and residual match their twins at every "
+        f"shape, K3 at 1-6 sweeps, the fused kernel at 0-5 (max rel err K2 "
+        f"{worst['K2'][1]:.2e}, K3 {worst['K3'][1]:.2e}, fused {worst['K3+K2'][1]:.2e}; "
+        f"bit-identical: K2 {worst['K2'][0] == 0}, K3 {worst['K3'][0] == 0}, fused "
+        f"{worst['K3+K2'][0] == 0}; tol {tol}); {k2_check_launches} K2 launches")
 
-    k3_timing = {}
+    # K3, K2 and the fused kernel back to back on inputs that fit in the 50 MB
+    # L2; the bounds count each HBM byte once
+    k3_timing, k2_timing, fused_timing = {}, {}, {}
     for shape in [(1, 160, 160), (1, 320, 320), (1, 640, 640), (4, 640, 640)]:
         n = shape[-1]
         u = torch.randn(shape, device=dev, generator=gen)
@@ -442,21 +461,45 @@ def main() -> None:
         def k3(u=u, b=b):
             return sk.kernel_jacobi_smooth(u, b, iters=2)
 
+        def k2(u=u, b=b):
+            return sk.kernel_residual(-1.0, u, b)
+
+        def fused(u=u, b=b):
+            return sk.kernel_smooth_residual(u, b, iters=2)
+
+        def pair(u=u, b=b):
+            return sk.kernel_residual(-1.0, sk.kernel_jacobi_smooth(u, b, iters=2), b)
+
         def conv(u=u, w5=w5):
             return F.conv2d(u[:, None], w5, padding=1)
 
-        t = dict(ms=time_ms(k3), plain_ms=time_ms(lambda: sk.plain_jacobi_smooth(u, b, iters=2)),
-                 library_ms=time_ms(conv), device_ms=device_ms_per_call(k3, K3_NAME),
-                 library_device_ms=device_ms_per_call(conv),
-                 bound=bound(3 * 4 * points, 2 * 10 * points), shape=list(shape))
-        k3_timing[shape] = t
-        log(f"[kernels] K3 2 sweeps at {shape}: device {t['device_ms'] * 1e3:.3f} us per launch "
-            f"(profiler), {t['ms']:.4f} ms per call (CUDA events), twin {t['plain_ms']:.4f} ms, "
-            f"bound {t['bound'][0] * 1e3:.3f} us ({t['bound'][1]}) = "
-            f"{100 * t['bound'][0] / max(t['device_ms'], 1e-9):.0f}% of the device time; "
-            f"F.conv2d L.u "
-            f"device {t['library_device_ms'] * 1e3:.3f} us, {t['library_ms']:.4f} ms per call; "
-            f"on {smi}")
+        yardstick = dict(library_ms=time_ms(conv), library_device_ms=device_ms_per_call(conv),
+                         shape=list(shape))
+        k3_timing[shape] = dict(
+            ms=time_ms(k3), plain_ms=time_ms(lambda: sk.plain_jacobi_smooth(u, b, iters=2)),
+            device_ms=device_ms_per_call(k3, K3_NAME),
+            bound=bound(3 * 4 * points, 2 * 10 * points), **yardstick)
+        k2_timing[shape] = dict(
+            ms=time_ms(k2), plain_ms=time_ms(lambda: sk.plain_residual(-1.0, u, b)),
+            device_ms=device_ms_per_call(k2, K2_NAME),
+            bound=bound(3 * 4 * points, 8 * points), **yardstick)
+        fused_timing[shape] = dict(
+            ms=time_ms(fused), plain_ms=time_ms(lambda: sk.plain_smooth_residual(u, b, iters=2)),
+            device_ms=device_ms_per_call(fused, K2_NAME),
+            pair_ms=time_ms(pair), pair_device_ms=device_ms_per_call(pair),
+            bound=bound(4 * 4 * points, (2 * 10 + 8) * points), **yardstick)
+        for label, t in (("K3 2 sweeps", k3_timing[shape]), ("K2 theta -1", k2_timing[shape]),
+                         ("fused 2 sweeps + residual", fused_timing[shape])):
+            log(f"[kernels] {label} at {shape}: device {t['device_ms'] * 1e3:.3f} us per launch "
+                f"(profiler), {t['ms']:.4f} ms per call (CUDA events), twin "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound'][0] * 1e3:.3f} us ({t['bound'][1]}) "
+                f"= {100 * t['bound'][0] / max(t['device_ms'], 1e-9):.0f}% of the device time; "
+                f"on {smi}")
+        t = fused_timing[shape]
+        log(f"[kernels] the pair the fused kernel replaces (K3 2 sweeps, then K2) at {shape}: "
+            f"device {t['pair_device_ms'] * 1e3:.3f} us per pair, {t['pair_ms']:.4f} ms per "
+            f"pair; F.conv2d L.u device {t['library_device_ms'] * 1e3:.3f} us, "
+            f"{t['library_ms']:.4f} ms per call; on {smi}")
     n = 640
     u, b = (torch.randn(1, n, n, device=dev, generator=gen) for _ in range(2))
     sweeps = {}
@@ -472,18 +515,6 @@ def main() -> None:
         log(f"[kernels] K3 {iters} sweeps at (1, 640, 640): {per_call} launch(es), device "
             f"{sweeps[iters]['device_ms'] * 1e3:.3f} us per call, "
             f"{sweeps[iters]['ms']:.4f} ms per call, on {smi}")
-
-    def k2():
-        return sk.kernel_residual(-1.0, u, b)
-
-    k2_timing = dict(ms=time_ms(k2), plain_ms=time_ms(lambda: sk.plain_residual(-1.0, u, b)),
-                     device_ms=device_ms_per_call(k2, K2_NAME),
-                     library_ms=k3_timing[(1, 640, 640)]["library_ms"],
-                     library_device_ms=k3_timing[(1, 640, 640)]["library_device_ms"],
-                     bound=bound(3 * 4 * 640 * 640, 8 * 640 * 640), shape=[1, 640, 640])
-    log(f"[kernels] K2 at (1, 640, 640): device {k2_timing['device_ms'] * 1e3:.3f} us per launch, "
-        f"{k2_timing['ms']:.4f} ms per call, twin {k2_timing['plain_ms']:.4f} ms, bound "
-        f"{k2_timing['bound'][0] * 1e3:.3f} us, on {smi}")
     lap("3 kernels")
 
     # ------------------------------------------------------------- 4. serve
@@ -540,9 +571,11 @@ def main() -> None:
         torch.cuda.synchronize()
     check(sk.launch_counts() == counts, "use_kernels=False launched a kernel")
     kernel_levels = [r for r in levels if r >= 160]
+    # per level and refine cycle: one fused pre-smooth and residual, one K3 post-smooth
     expected = {"kernel_apply_operator": 0, "kernel_pde_loss_forward": 0,
-                "kernel_pde_loss_backward": 0, "kernel_residual": 2 * len(kernel_levels),
-                "kernel_jacobi_smooth": 2 * 2 * len(kernel_levels)}
+                "kernel_pde_loss_backward": 0, "kernel_residual": 0,
+                "kernel_jacobi_smooth": 2 * len(kernel_levels),
+                "kernel_smooth_residual": 2 * len(kernel_levels)}
     log(f"[refine] launches {counts}, expected {expected}; wall {refine_ms:.1f} ms on {card}")
     check(counts == expected, f"launch counts {counts} != {expected}")
     for r in levels:
@@ -561,15 +594,19 @@ def main() -> None:
     k = torch.tensor([[3.3, 7.1], [10.5, 10.2], [6.0, 1.5], [11.9, 8.4]], device=dev)
     f4 = forcing_term(k[:, 0], k[:, 1], n, device=dev)
     th4 = torch.rand(4, n, n, device=dev, generator=gen) * 1.5 + 0.5
-    sk.reset_launch_counts()
     mg_ms = wall_ms(lambda: solve_poisson_mg(f4, th4, n_cycles=12, use_kernels=True))
+    sk.reset_launch_counts()
     u_mg = solve_poisson_mg(f4, th4, n_cycles=12, use_kernels=True)
+    torch.cuda.synchronize()
+    mg_counts = sk.launch_counts()
     u_dst = solve_poisson_dst(f4, th4, refine_iters=1)
     mg_err = float((u_mg - u_dst).abs().max())
     mg_scale = float(u_dst.abs().max())
     log(f"[multigrid] 640^2 batch 4, 12 cycles: max|mg - dst| {mg_err:.3e} "
-        f"(max|u| {mg_scale:.3e}); wall {mg_ms:.1f} ms on {card}; launches {sk.launch_counts()}")
+        f"(max|u| {mg_scale:.3e}); wall {mg_ms:.1f} ms on {card}; launches {mg_counts}")
     check(mg_err <= 1e-4 * mg_scale, "multigrid does not reach the DST solution")
+    check(mg_counts["kernel_smooth_residual"] == 12 and mg_counts["kernel_jacobi_smooth"] == 12
+          and mg_counts["kernel_residual"] == 0, f"multigrid launches {mg_counts}")
     lap("6 multigrid")
 
     # ------------------------------------------------------- 7. profile
@@ -752,14 +789,20 @@ def main() -> None:
               "K1 loss backward": dict(t40["backward"], shape=t40["shape"],
                                        launches=trained["launches"]["kernel_pde_loss_backward"],
                                        path="train CLI, 2 epochs (phase 10)"),
-              "K2": dict(k2_timing, launches=counts["kernel_residual"],
-                         path="refined scene to 640^2 (phase 5)"),
+              "K2": dict(k2_timing[(1, 640, 640)], launches=counts["kernel_residual"],
+                         check_launches=k2_check_launches,
+                         path="refined scene to 640^2 (phase 5), whose V-cycle runs the fused "
+                              "kernel in its place; check_launches: phase 3's comparisons"),
               "K3": dict(k3_timing[(1, 640, 640)], launches=counts["kernel_jacobi_smooth"],
-                         path="refined scene to 640^2 (phase 5)")}
+                         path="refined scene to 640^2 (phase 5): the post-smooths"),
+              "K3+K2": dict(fused_timing[(1, 640, 640)], launches=counts["kernel_smooth_residual"],
+                            path="refined scene to 640^2 (phase 5): the pre-smooths and "
+                                 "residuals; pair_*: K3 then K2 as two calls")}
     names = {"K1": "kernel_apply_operator", "K1 loss forward": "kernel_pde_loss_forward",
              "K1 loss backward": "kernel_pde_loss_backward", "K2": "kernel_residual",
-             "K3": "kernel_jacobi_smooth"}
-    lines = {"K1": 100, "K1 loss forward": 100, "K1 loss backward": 100, "K2": 115, "K3": 131}
+             "K3": "kernel_jacobi_smooth", "K3+K2": "kernel_smooth_residual"}
+    lines = {"K1": "100", "K1 loss forward": "100", "K1 loss backward": "100", "K2": "115",
+             "K3": "131", "K3+K2": "131 and :115"}
     rows = []
     for key in keys:
         t = timing[key]
@@ -773,10 +816,12 @@ def main() -> None:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             "device_ms": t["device_ms"], "shape": t["shape"],
         })
-        if "check_launches" in t:
-            rows[-1]["check_launches"] = t["check_launches"]
+        for extra in ("check_launches", "pair_ms", "pair_device_ms"):
+            if extra in t:
+                rows[-1][extra] = t[extra]
     rows[1]["loss_max_rel_err"] = loss_rel
-    log(f"[summary] K3 timing {k3_timing}; K3 sweeps {sweeps}; loss timing {loss_timing}")
+    log(f"[summary] K3 timing {k3_timing}; K2 timing {k2_timing}; fused timing "
+        f"{fused_timing}; K3 sweeps {sweeps}; loss timing {loss_timing}")
     log(f"[summary] generate {generated}; train {trained['summary']}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))

@@ -42,15 +42,6 @@
 //     backward reads s and writes the gradient (410 KB, 0.12 us): the launch
 //     latency dominates, which is why the loss's elementwise tail is fused in.
 //
-// K2  srpde_residual -- replaces superresolution_for_pdes_tpu/ops/pallas_stencil.py
-//     pallas_residual (_residual_kernel): out = f - theta * (S(u) - 4u) / h^2.
-//     theta is a field, or a scalar when the theta pointer is null: the
-//     V-cycle's theta == -1 call then reads no theta field. A 2-D grid of
-//     32 x 16 tiles with a one-point shared halo; the batch index is
-//     blockIdx.z.
-//     Bound on an H100: bytes. With scalar theta it must read u and f and
-//     write out, 12 bytes a point: 4.9 MB, 1.5 us at 640^2.
-//
 // K3  srpde_jacobi -- replaces superresolution_for_pdes_tpu/ops/pallas_stencil.py
 //     pallas_jacobi_smooth (_jacobi_kernel): `iters` weighted-Jacobi sweeps
 //     u <- u + (omega h^2 / 4) (b + (S(u) - 4u) / h^2) for (-L) u = b, every
@@ -78,6 +69,29 @@
 //     Bound on an H100: bytes. It reads u and b and writes out once for all
 //     sweeps, 12 bytes a point: 4.9 MB, 1.5 us at 640^2.
 //
+// K2  srpde_residual -- replaces superresolution_for_pdes_tpu/ops/pallas_stencil.py
+//     pallas_residual (_residual_kernel): r = f - theta * (S(u) - 4u) / h^2,
+//     and, fused with K3, the V-cycle's finest-level pre-smooth followed by
+//     its residual (superresolution_for_pdes_tpu/solver/multigrid.py:112-113):
+//     `iters` sweeps as K3, then r = b - theta * L u of the result.
+//     The same template as K3 (sweep_body; entry points jacobi_kernel for K3,
+//     smooth_residual_kernel for K2 and the fused step) with a residual
+//     epilogue: after its sweeps (iters = 0 is plain K2) the block makes one
+//     more pass over its patch (shuffles and the shared exchange, as a sweep)
+//     that forms L u in
+//     registers, and the store writes r = f - theta * L u and, when iters > 0,
+//     the smoothed u. The residual needs one more exact ring than the sweeps,
+//     so the halo is iters + 1 rows and columns: at most 3 sweeps before the
+//     epilogue in the 4-column halo (the wrapper runs K3 launches before it
+//     for more). theta is a field, or a scalar when the theta pointer is null:
+//     the V-cycle's theta == -1 reads no theta field, and a theta field is
+//     read only at the outputs. Sums in the twins' order: up + dn + l + r - 4c,
+//     then f - theta * lap.
+//     Bound on an H100: bytes. K2 with scalar theta reads u and f and writes
+//     r, 12 bytes a point: 4.9 MB, 1.5 us at 640^2; the fused pre-smooth and
+//     residual read u and b and write u and r, 16 bytes a point: 6.6 MB,
+//     1.96 us at 640^2, where K3 and K2 as two launches move 24.
+//
 // Build (ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 --fmad=false
 //        -shared -Xcompiler -fPIC -o libstencil.so stencil.cu
@@ -93,53 +107,6 @@
 #include <algorithm>
 
 namespace {
-
-// ------------------------------------------------------------------ K2
-constexpr int kTileW = 32;          // outputs per block in x (= threads in x)
-constexpr int kTileH = 16;          // outputs per block in y (= threads in y)
-constexpr int kThreads = kTileW * kTileH;
-
-__device__ __forceinline__ bool in_grid(int y, int x, int n) {
-  return y >= 0 && y < n && x >= 0 && x < n;
-}
-
-// K2: out = f - theta * lap.
-__global__ void __launch_bounds__(kThreads)
-residual_kernel(const float* __restrict__ theta, float theta_scalar,
-                const float* __restrict__ u, const float* __restrict__ f,
-                float* __restrict__ out, int n, float h2) {
-  __shared__ float tile[kTileH + 2][kTileW + 2];
-  const size_t slab = static_cast<size_t>(n) * n;
-  const size_t base = static_cast<size_t>(blockIdx.z) * slab;
-  const int x0 = blockIdx.x * kTileW;
-  const int y0 = blockIdx.y * kTileH;
-  const int tid = threadIdx.y * kTileW + threadIdx.x;
-
-  for (int i = tid; i < (kTileH + 2) * (kTileW + 2); i += kThreads) {
-    const int ly = i / (kTileW + 2);
-    const int lx = i % (kTileW + 2);
-    const int gy = y0 + ly - 1;
-    const int gx = x0 + lx - 1;
-    tile[ly][lx] = in_grid(gy, gx, n) ? u[base + static_cast<size_t>(gy) * n + gx] : 0.0f;
-  }
-  __syncthreads();
-
-  const int gx = x0 + threadIdx.x;
-  const int gy = y0 + threadIdx.y;
-  if (gx >= n || gy >= n) return;
-  const int lx = threadIdx.x + 1;
-  const int ly = threadIdx.y + 1;
-  const float c = tile[ly][lx];
-  const float s = tile[ly - 1][lx] + tile[ly + 1][lx] + tile[ly][lx - 1] + tile[ly][lx + 1];
-  const float lap = (s - 4.0f * c) / h2;
-  const size_t idx = base + static_cast<size_t>(gy) * n + gx;
-  const float th = theta != nullptr ? theta[idx] : theta_scalar;
-  out[idx] = f[idx] - th * lap;
-}
-
-dim3 grid_for(int n, int batch) {
-  return dim3((n + kTileW - 1) / kTileW, (n + kTileH - 1) / kTileH, batch);
-}
 
 // ---------------------------------------------------------- vector helpers
 template <int V>
@@ -413,23 +380,41 @@ int launch_band(int mode, BandArgs a, int batch, int n, int vec, void* stream,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ------------------------------------------------------------------ K3
+// ------------------------------------------------------------ K3 and K2
 constexpr int kMaxFusedIters = 4;   // sweeps per launch = the 4-column halo
 constexpr int kLanes = 32;          // float4 columns per block: 128 staged columns
 constexpr int kPatch = 2;           // rows per thread (1 and 4 measured slower)
 constexpr int kOutW = 4 * kLanes - 8;  // 120 output columns per block
 constexpr int kMaxTy = 16;          // at most 512 threads
 
-template <int K, bool kVec>
-__global__ void __launch_bounds__(kLanes * kMaxTy)
-jacobi_kernel(const float* __restrict__ u, const float* __restrict__ b,
-              float* __restrict__ out, int n, float h2, float scale) {
-  // [sweep parity][top, bottom row][ty][lane]: what the rows above and below read
+// The host's bundle of a launch's arguments.
+struct SweepArgs {
+  const float* u;
+  const float* b;        // the right-hand side: K3's b; K2's f
+  const float* theta;    // kResidual: a field of u's shape, or null for theta_scalar
+  float theta_scalar;
+  float* out;            // the smoothed u (K > 0)
+  float* r_out;          // kResidual: r = b - theta L u of the smoothed u
+  int n;
+  float h2, scale;       // scale = omega h^2 / 4
+};
+
+// One block of K3 and K2: K sweeps over the staged tile; with kResidual one
+// more pass forms L u of the result, and the store writes r = b - theta L u
+// beside the smoothed u.
+template <int K, bool kResidual, bool kVec>
+__device__ __forceinline__ void sweep_body(const float* __restrict__ u,
+                                           const float* __restrict__ b,
+                                           const float* __restrict__ theta, float theta_scalar,
+                                           float* __restrict__ out, float* __restrict__ r_out,
+                                           int n, float h2, float scale) {
+  constexpr int kHalo = kResidual ? K + 1 : K;  // rows (and at most 4 columns) of halo
+  // [pass parity][top, bottom row][ty][lane]: what the rows above and below read
   __shared__ float4 edge[2][2][kMaxTy][kLanes];
   const int lane = threadIdx.x, ty = threadIdx.y, tys = blockDim.y;
-  const int out_rows = tys * kPatch - 2 * K;
+  const int out_rows = tys * kPatch - 2 * kHalo;
   const int gx = static_cast<int>(blockIdx.x) * kOutW - 4 + 4 * lane;  // first column
-  const int gy = static_cast<int>(blockIdx.y) * out_rows - K + ty * kPatch;  // first row
+  const int gy = static_cast<int>(blockIdx.y) * out_rows - kHalo + ty * kPatch;  // first row
   const long long base = static_cast<long long>(blockIdx.z) * n * n;
   const float inv_h2 = 1.0f / h2;
 
@@ -462,8 +447,10 @@ jacobi_kernel(const float* __restrict__ u, const float* __restrict__ b,
     }
   }
 
+  float lap_u[kPatch][4];  // kResidual: L u of the smoothed u
 #pragma unroll
-  for (int s = 0; s < K; ++s) {
+  for (int s = 0; s < kHalo; ++s) {
+    const bool residual_pass = kResidual && s == K;  // known at compile time
     float4* top = &edge[s & 1][0][0][0];
     float4* bottom = &edge[s & 1][1][0][0];
     top[ty * kLanes + lane] = make_float4(c[0][0], c[0][1], c[0][2], c[0][3]);
@@ -489,14 +476,20 @@ jacobi_kernel(const float* __restrict__ u, const float* __restrict__ b,
         const float l = j == 0 ? left : c[i][j - 1];
         const float r = j == 3 ? right : c[i][j + 1];
         const float lap = div_rn(up + dn + l + r - 4.0f * c[i][j], h2, inv_h2);
-        const float v = c[i][j] + scale * (rhs[i][j] + lap);
-        next[i][j] = row_in[i] && col_in[j] ? v : 0.0f;  // zero padding, never updated
+        if (residual_pass) {
+          lap_u[i][j] = lap;
+        } else {
+          const float v = c[i][j] + scale * (rhs[i][j] + lap);
+          next[i][j] = row_in[i] && col_in[j] ? v : 0.0f;  // zero padding, never updated
+        }
       }
     }
+    if (!residual_pass) {
 #pragma unroll
-    for (int i = 0; i < kPatch; ++i) {
+      for (int i = 0; i < kPatch; ++i) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) c[i][j] = next[i][j];
+        for (int j = 0; j < 4; ++j) c[i][j] = next[i][j];
+      }
     }
   }
 
@@ -504,33 +497,75 @@ jacobi_kernel(const float* __restrict__ u, const float* __restrict__ b,
 #pragma unroll
   for (int i = 0; i < kPatch; ++i) {
     const int local = ty * kPatch + i;
-    if (local < K || local >= K + out_rows || !row_in[i]) continue;
+    if (local < kHalo || local >= kHalo + out_rows || !row_in[i]) continue;
     const long long g = base + static_cast<long long>(gy + i) * n + gx;
     if constexpr (kVec) {
-      if (col_in[0]) {
+      if (!col_in[0]) continue;
+      if constexpr (K > 0) {
         *reinterpret_cast<float4*>(out + g) = make_float4(c[i][0], c[i][1], c[i][2], c[i][3]);
+      }
+      if constexpr (kResidual) {
+        float th[4], res[4];
+        if (theta != nullptr) {
+          load_v<4>(theta + g, th);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) th[j] = theta_scalar;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) res[j] = rhs[i][j] - th[j] * lap_u[i][j];
+        store_v<4>(r_out + g, res);
       }
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (col_in[j]) out[g + j] = c[i][j];
+        if (!col_in[j]) continue;
+        if constexpr (K > 0) out[g + j] = c[i][j];
+        if constexpr (kResidual) {
+          const float th = theta != nullptr ? theta[g + j] : theta_scalar;
+          r_out[g + j] = rhs[i][j] - th * lap_u[i][j];
+        }
       }
     }
   }
 }
 
-template <int K>
-int launch_jacobi(const float* u, const float* b, float* out, int batch, int n, float h2,
-                  float scale, int vec, cudaStream_t stream) {
+// The two entry points take only the parameters they read, in the order a
+// block reads them: while K3's parameter block also held K2's, its launches
+// took longer by a constant with the same instructions, and this order
+// shortened the fused launches.
+
+// K3: K sweeps.
+template <int K, bool kVec>
+__global__ void __launch_bounds__(kLanes * kMaxTy)
+jacobi_kernel(const float* __restrict__ u, const float* __restrict__ b,
+              float* __restrict__ out, int n, float h2, float scale) {
+  sweep_body<K, false, kVec>(u, b, nullptr, 0.0f, out, nullptr, n, h2, scale);
+}
+
+// K2 (K = 0), or K sweeps and then the residual (the fused pre-smooth).
+template <int K, bool kVec>
+__global__ void __launch_bounds__(kLanes * kMaxTy)
+smooth_residual_kernel(const float* __restrict__ u, const float* __restrict__ f, int n,
+                       float h2, float scale, float theta_scalar,
+                       const float* __restrict__ theta, float* __restrict__ u_out,
+                       float* __restrict__ r_out) {
+  sweep_body<K, true, kVec>(u, f, theta, theta_scalar, u_out, r_out, n, h2, scale);
+}
+
+template <int K, bool kResidual>
+int launch_jacobi(const SweepArgs& a, int batch, int vec, cudaStream_t stream) {
   // Block height: a block's time grows with its threads, and an SM runs the
   // blocks it gets one after another, so take the height with the fewest
   // threads per SM, ceil(blocks / 132) * tys (the taller on a tie: less
   // halo), among those that keep half of the staged rows as outputs.
+  constexpr int kHalo = kResidual ? K + 1 : K;
+  const int n = a.n;
   const int tiles_x = (n + kOutW - 1) / kOutW;
   int tys = 0;
   long long best = 0;
-  for (int t = kMaxTy; t * kPatch >= 4 * K; t /= 2) {
-    const int rows = t * kPatch - 2 * K;
+  for (int t = kMaxTy; t * kPatch >= 4 * kHalo; t /= 2) {
+    const int rows = t * kPatch - 2 * kHalo;
     const long long blocks = static_cast<long long>(tiles_x) * ((n + rows - 1) / rows) * batch;
     const long long cost = (blocks + kNumSMs - 1) / kNumSMs * t;
     if (tys == 0 || cost < best) {
@@ -538,13 +573,21 @@ int launch_jacobi(const float* u, const float* b, float* out, int batch, int n, 
       best = cost;
     }
   }
-  const int rows = tys * kPatch - 2 * K;
+  const int rows = tys * kPatch - 2 * kHalo;
   const dim3 grid(tiles_x, (n + rows - 1) / rows, batch);
   const dim3 block(kLanes, tys);
-  if (vec) {
-    jacobi_kernel<K, true><<<grid, block, 0, stream>>>(u, b, out, n, h2, scale);
+  if constexpr (kResidual) {
+    if (vec) {
+      smooth_residual_kernel<K, true><<<grid, block, 0, stream>>>(
+          a.u, a.b, n, a.h2, a.scale, a.theta_scalar, a.theta, a.out, a.r_out);
+    } else {
+      smooth_residual_kernel<K, false><<<grid, block, 0, stream>>>(
+          a.u, a.b, n, a.h2, a.scale, a.theta_scalar, a.theta, a.out, a.r_out);
+    }
+  } else if (vec) {
+    jacobi_kernel<K, true><<<grid, block, 0, stream>>>(a.u, a.b, a.out, n, a.h2, a.scale);
   } else {
-    jacobi_kernel<K, false><<<grid, block, 0, stream>>>(u, b, out, n, h2, scale);
+    jacobi_kernel<K, false><<<grid, block, 0, stream>>>(a.u, a.b, a.out, n, a.h2, a.scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -600,22 +643,31 @@ extern "C" int srpde_pde_loss_backward(const float* seed, const float* u_std, in
   return launch_band(kLossBackward, a, batch, n, vec, stream);
 }
 
+// K2 (iters = 0) or `iters` <= 3 K3 sweeps fused with it: r_out = f - theta
+// L u of the smoothed u, which goes to u_out (unused when iters = 0).
 extern "C" int srpde_residual(const float* theta, float theta_scalar, const float* u,
-                              const float* f, float* out, int batch, int n, float h2,
-                              void* stream) {
-  residual_kernel<<<grid_for(n, batch), dim3(kTileW, kTileH), 0,
-                    static_cast<cudaStream_t>(stream)>>>(theta, theta_scalar, u, f, out, n, h2);
-  return static_cast<int>(cudaGetLastError());
+                              const float* f, float* u_out, float* r_out, int batch, int n,
+                              float h2, float scale, int iters, int vec, void* stream) {
+  const SweepArgs a{u, f, theta, theta_scalar, u_out, r_out, n, h2, scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (iters) {
+    case 0: return launch_jacobi<0, true>(a, batch, vec, s);
+    case 1: return launch_jacobi<1, true>(a, batch, vec, s);
+    case 2: return launch_jacobi<2, true>(a, batch, vec, s);
+    case 3: return launch_jacobi<3, true>(a, batch, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int srpde_jacobi(const float* u, const float* b, float* out, int batch, int n,
                             float h2, float scale, int iters, int vec, void* stream) {
+  const SweepArgs a{u, b, nullptr, 0.0f, out, nullptr, n, h2, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (iters) {
-    case 1: return launch_jacobi<1>(u, b, out, batch, n, h2, scale, vec, s);
-    case 2: return launch_jacobi<2>(u, b, out, batch, n, h2, scale, vec, s);
-    case 3: return launch_jacobi<3>(u, b, out, batch, n, h2, scale, vec, s);
-    case 4: return launch_jacobi<4>(u, b, out, batch, n, h2, scale, vec, s);
+    case 1: return launch_jacobi<1, false>(a, batch, vec, s);
+    case 2: return launch_jacobi<2, false>(a, batch, vec, s);
+    case 3: return launch_jacobi<3, false>(a, batch, vec, s);
+    case 4: return launch_jacobi<4, false>(a, batch, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -14,12 +14,16 @@ of ``ops/pallas_stencil.py``).
   ``theta == -1`` call reads no theta field.
 * :func:`kernel_jacobi_smooth` (K3) -- ``iters`` weighted-Jacobi sweeps for
   ``(-L) u = b``, replacing ``pallas_jacobi_smooth``.
+* :func:`kernel_smooth_residual` (K3 then K2 in one launch) -- the V-cycle's
+  pre-smooth and its residual ``b - (-L) u``, replacing
+  ``pallas_jacobi_smooth`` followed by ``pallas_residual(-1, ...)``.
 
 The CUDA source is ``csrc/stencil.cu`` (design and bound noted there). On a
 CUDA tensor a wrapper launches its kernel on the current stream or raises; on
 a CPU tensor it runs the plain twin (:func:`plain_apply_operator`,
 :func:`plain_pde_residual_loss`, :func:`plain_pde_residual_loss_backward`,
-:func:`plain_residual`, :func:`plain_jacobi_smooth`), which computes the same
+:func:`plain_residual`, :func:`plain_jacobi_smooth`,
+:func:`plain_smooth_residual`), which computes the same
 arithmetic in the same order with the port's ``ops/stencil.py``. Each wrapper
 counts its kernel launches in ``.launches``; the twins count nothing.
 
@@ -129,7 +133,7 @@ def _lib() -> _Lib:
         "srpde_pde_loss_forward": [ptr, ptr, ptr, ptr, i, ptr, i, ptr, i, ptr, ptr, ptr,
                                    i, i, f, i, ptr],
         "srpde_pde_loss_backward": [ptr, ptr, i, ptr, ptr, i, i, f, i, ptr],
-        "srpde_residual": [ptr, f, ptr, ptr, ptr, i, i, f, ptr],
+        "srpde_residual": [ptr, f, ptr, ptr, ptr, ptr, i, i, f, f, i, i, ptr],
         "srpde_jacobi": [ptr, ptr, ptr, i, i, f, f, i, i, ptr],
         "srpde_max_fused_iters": [],
     }
@@ -216,6 +220,15 @@ def plain_jacobi_smooth(u: torch.Tensor, b: torch.Tensor, h: float | None = None
         lap = (shift_sum(u) - 4.0 * u) / h2
         u = u + scale * (b + lap)
     return u
+
+
+def plain_smooth_residual(u: torch.Tensor, b: torch.Tensor, h: float | None = None,
+                          omega: float = 0.8, iters: int = 2):
+    """Plain PyTorch V-cycle pre-smooth and residual: ``iters`` sweeps of
+    :func:`plain_jacobi_smooth`, then ``b - (-L) u`` as
+    ``plain_residual(-1, u, b)``. Returns ``(u, r)``."""
+    u = plain_jacobi_smooth(u, b, h, omega, iters)
+    return u, plain_residual(-1.0, u, b, h)
 
 
 # -------------------------------------------------------------------- wrappers
@@ -331,15 +344,15 @@ def kernel_residual(theta, u: torch.Tensor, f: torch.Tensor,
     _check_device("kernel_residual", u)
     _check_cuda("kernel_residual", u, *fields.values())
     n = u.shape[-1]
-    out = torch.empty_like(u)
-    theta_scalar = float(theta) if scalar else 0.0
-    with torch.cuda.device(u.device):
+    r = torch.empty_like(u)
+    with _on(u):
         code = _lib().residual(
-            _ptr(None if scalar else theta), theta_scalar, _ptr(u), _ptr(f), _ptr(out),
-            _batch(u), n, float(_h2(n, h)), _stream(u))
+            _ptr(None if scalar else theta), float(theta) if scalar else 0.0, _ptr(u), _ptr(f),
+            _ptr(None), _ptr(r), _batch(u), n, float(_h2(n, h)), 0.0, 0,
+            _vec(n, u, r, *fields.values()), _stream(u))
     _raise_on("kernel_residual", code)
     kernel_residual.launches += 1
-    return out
+    return r
 
 
 def kernel_jacobi_smooth(u: torch.Tensor, b: torch.Tensor, h: float | None = None,
@@ -374,14 +387,50 @@ def kernel_jacobi_smooth(u: torch.Tensor, b: torch.Tensor, h: float | None = Non
     return u if iters else u.clone()
 
 
+def kernel_smooth_residual(u: torch.Tensor, b: torch.Tensor, h: float | None = None,
+                           omega: float = 0.8, iters: int = 2):
+    """The V-cycle's pre-smooth and residual: ``iters`` weighted-Jacobi sweeps
+    for ``(-L) u = b`` (as :func:`kernel_jacobi_smooth`), then
+    ``r = b - (-L) u`` of the result. Returns ``(u, r)``; with ``iters = 0``
+    the first is ``u`` itself.
+
+    One launch does up to 3 sweeps and the residual; more sweeps first run
+    :func:`kernel_jacobi_smooth` launches for the rest."""
+    name = "kernel_smooth_residual"
+    _check_slabs(name, u, b=b)
+    if iters < 0:
+        raise ValueError(f"{name}: iters must be >= 0, got {iters}")
+    if u.device.type == "cpu":
+        return plain_smooth_residual(u, b, h, omega, iters)
+    _check_device(name, u)
+    _check_cuda(name, u, b)
+    lib = _lib()
+    fused = min(iters, lib.max_fused_iters - 1)  # the residual's halo is one ring wider
+    if iters > fused:
+        u = kernel_jacobi_smooth(u, b, h, omega, iters - fused)
+    n = u.shape[-1]
+    h2 = _h2(n, h)
+    u_out = torch.empty_like(u) if fused else None
+    r = torch.empty_like(u)
+    with _on(u):
+        code = lib.residual(
+            _ptr(None), -1.0, _ptr(u), _ptr(b), _ptr(u_out), _ptr(r), _batch(u), n, float(h2),
+            float(_jacobi_scale(h2, omega)), fused,
+            _vec(n, u, b, r, *([u_out] if fused else [])), _stream(u))
+    _raise_on(name, code)
+    kernel_smooth_residual.launches += 1
+    return (u_out if fused else u), r
+
+
 kernel_apply_operator.launches = 0
 kernel_pde_loss_forward.launches = 0
 kernel_pde_loss_backward.launches = 0
 kernel_residual.launches = 0
 kernel_jacobi_smooth.launches = 0
+kernel_smooth_residual.launches = 0
 
 KERNELS = (kernel_apply_operator, kernel_pde_loss_forward, kernel_pde_loss_backward,
-           kernel_residual, kernel_jacobi_smooth)
+           kernel_residual, kernel_jacobi_smooth, kernel_smooth_residual)
 
 
 def reset_launch_counts() -> None:

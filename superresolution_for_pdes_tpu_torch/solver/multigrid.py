@@ -10,9 +10,10 @@ cached, and its on-device fp32 tensors are cached per (n, dtype, device).
 
 At the finest level ``B = -tridiag(1, -2, 1)/h^2`` and ``D = I``, so smoothing
 and the residual are 5-point stencil work: with ``use_kernels`` the V-cycle
-runs them as the hand-written kernels K3 (pre-smoothing), K2 (residual with a
-scalar ``theta = -1``) and K3 (post-smoothing) of
-:mod:`~superresolution_for_pdes_tpu_torch.ops.stencil_kernels`. On a CPU
+runs them as the hand-written kernels of
+:mod:`~superresolution_for_pdes_tpu_torch.ops.stencil_kernels`: the
+pre-smoothing and the residual (K3 then K2 with a scalar ``theta = -1``) in
+one launch, and K3 for the post-smoothing. On a CPU
 tensor those wrappers run their plain twins, so ``use_kernels=True`` on the
 CPU exercises the same wiring.
 """
@@ -27,7 +28,7 @@ import torch
 from superresolution_for_pdes_tpu_torch.ops.resize import resize_matrix_np
 from superresolution_for_pdes_tpu_torch.ops.stencil_kernels import (
     kernel_jacobi_smooth,
-    kernel_residual,
+    kernel_smooth_residual,
 )
 
 
@@ -86,9 +87,7 @@ def _vcycle(u, b, sizes, levels, A_inv, level, pre, post, omega, use_kernels):
         return torch.matmul(flat, A_inv.T).reshape(b.shape)
     kernels = use_kernels and level == 0
     if kernels:
-        h = 1.0 / (sizes[0] - 1)
-        u = kernel_jacobi_smooth(u, b, h=h, omega=omega, iters=pre)
-        r = kernel_residual(-1.0, u, b, h=h)  # b - (-L) u
+        u, r = kernel_smooth_residual(u, b, h=1.0 / (sizes[0] - 1), omega=omega, iters=pre)
     else:
         for _ in range(pre):
             u = u + inv_diag * (b - _apply_A(B, D, u))
@@ -109,8 +108,8 @@ def vcycle(u: torch.Tensor, b: torch.Tensor, pre: int = 2, post: int = 2,
            omega: float = 0.8, use_kernels: bool | None = None) -> torch.Tensor:
     """One Galerkin V-cycle for ``(-L) u = b`` on the last two axes (batched).
 
-    ``use_kernels`` runs the finest level's smoothing and residual as the
-    stencil kernels K3/K2. ``None`` enables them for CUDA tensors at
+    ``use_kernels`` runs the finest level's smoothing and residual on the
+    stencil kernels (the pre-smooth fused with the residual, then K3). ``None`` enables them for CUDA tensors at
     ``n >= 160``, the switch the JAX package uses on the TPU.
     """
     n = b.shape[-1]

@@ -1,5 +1,6 @@
 """PyTorch port on an NVIDIA card: the hand-written stencil kernels against
-their plain twins, K1's adjoint, the fused physics-loss kernels (forward,
+their plain twins (K2 and the fused pre-smooth and residual at every sweep
+count, aligned and misaligned), K1's adjoint, the fused physics-loss kernels (forward,
 backward, determinism, concurrent streams, launch counts), and the V-cycle with and
 without the kernels. Skipped without a
 card; on one, run ``python -m pytest --noconftest -q tests/test_torch_cuda.py``
@@ -46,7 +47,7 @@ def test_kernels_match_twins(shape, gen):
     # K3 runs up to 4 sweeps per launch: 0 + 1 + 1 + 1 + 2 launches
     assert sk.launch_counts() == {"kernel_apply_operator": 2, "kernel_pde_loss_forward": 0,
                                   "kernel_pde_loss_backward": 0, "kernel_residual": 2,
-                                  "kernel_jacobi_smooth": 5}
+                                  "kernel_jacobi_smooth": 5, "kernel_smooth_residual": 0}
 
 
 def test_kernels_reject_what_they_cannot_take(gen):
@@ -89,8 +90,8 @@ def test_vcycle_with_kernels_matches_dense_path(gen):
     sk.reset_launch_counts()
     fused = vcycle(u0, b)  # None -> kernels for CUDA tensors at n >= 160
     assert sk.launch_counts() == {"kernel_apply_operator": 0, "kernel_pde_loss_forward": 0,
-                                  "kernel_pde_loss_backward": 0, "kernel_residual": 1,
-                                  "kernel_jacobi_smooth": 2}
+                                  "kernel_pde_loss_backward": 0, "kernel_residual": 0,
+                                  "kernel_jacobi_smooth": 1, "kernel_smooth_residual": 1}
     dense = vcycle(u0, b, use_kernels=False)
     torch.cuda.synchronize()
     assert torch.allclose(fused, dense, rtol=1e-5, atol=1e-7 * float(dense.abs().max()))
@@ -105,8 +106,11 @@ def _misaligned(t):
     return out
 
 
-@pytest.mark.parametrize("shape", [(1, 160, 160), (1, 640, 640), (4, 640, 640), (8, 161, 161),
-                                   (2, 3, 41, 41), (1, 1023, 1023)])
+SHAPES = [(1, 160, 160), (1, 640, 640), (4, 640, 640), (8, 161, 161), (2, 3, 41, 41),
+          (1, 1023, 1023)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
 def test_jacobi_matches_twin_at_every_sweep_count(shape, gen):
     u, b = (torch.randn(shape, device="cuda", generator=gen) for _ in range(2))
     for iters in (0, 1, 2, 3, 4, 6, 9):
@@ -188,7 +192,41 @@ def test_pde_residual_loss_launches_one_kernel_each_way(gen):
     ref_loss.backward()
     assert sk.launch_counts() == {"kernel_apply_operator": 0, "kernel_pde_loss_forward": 2,
                                   "kernel_pde_loss_backward": 1, "kernel_residual": 0,
-                                  "kernel_jacobi_smooth": 0}
+                                  "kernel_jacobi_smooth": 0, "kernel_smooth_residual": 0}
     loss, ref_loss = float(loss.detach()), float(ref_loss.detach())
     assert abs(loss - ref_loss) <= 1e-6 * abs(ref_loss)
     _close(x.grad, ref.grad)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_residual_matches_twin(shape, gen):
+    """K2 with theta scalar and a field, aligned and (where n % 4 == 0) not."""
+    u, f = (torch.randn(shape, device="cuda", generator=gen) for _ in range(2))
+    theta = torch.rand(shape, device="cuda", generator=gen) + 0.5
+    sk.reset_launch_counts()
+    for th in (-1.0, theta):
+        ref = sk.plain_residual(th, u, f)
+        _close(sk.kernel_residual(th, u, f), ref)
+        if shape[-1] % 4 == 0:
+            th_m = th if isinstance(th, float) else _misaligned(th)
+            _close(sk.kernel_residual(th_m, _misaligned(u), _misaligned(f)), ref)
+    assert sk.launch_counts()["kernel_residual"] == (4 if shape[-1] % 4 == 0 else 2)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_smooth_residual_matches_twin_at_every_sweep_count(shape, gen):
+    """The fused pre-smooth and residual: one launch up to 3 sweeps, K3
+    launches before it beyond."""
+    u, b = (torch.randn(shape, device="cuda", generator=gen) for _ in range(2))
+    for iters in (0, 1, 2, 3, 5):
+        ref_u, ref_r = sk.plain_smooth_residual(u, b, iters=iters)
+        sk.reset_launch_counts()
+        got_u, got_r = sk.kernel_smooth_residual(u, b, iters=iters)
+        assert sk.launch_counts()["kernel_smooth_residual"] == 1
+        assert sk.launch_counts()["kernel_jacobi_smooth"] == (1 if iters > 3 else 0)
+        _close(got_u, ref_u)
+        _close(got_r, ref_r)
+        if shape[-1] % 4 == 0 and iters == 2:
+            got_u, got_r = sk.kernel_smooth_residual(_misaligned(u), _misaligned(b), iters=iters)
+            _close(got_u, ref_u)
+            _close(got_r, ref_r)

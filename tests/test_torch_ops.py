@@ -1,5 +1,6 @@
 """PyTorch port, ``ops/``: grid, align-corners resize, 5-point stencil and the
-plain twins of the stencil kernels K2/K3, each against the JAX package (the
+plain twins of the stencil kernels K2/K3 and of the fused pre-smooth and
+residual, each against the JAX package (the
 Pallas kernels in interpret mode, as ``tests/test_pallas_stencil.py`` runs
 them; K1's twin is held in ``tests/test_torch_physics.py``)."""
 
@@ -90,6 +91,20 @@ def test_jacobi_twin_matches_pallas(n, iters, rng):
     assert_rel_close(ours, ref, 1e-6, "K3 twin")
 
 
+@pytest.mark.parametrize("n", [20, 41])
+@pytest.mark.parametrize("iters", [0, 1, 2, 3, 5])
+def test_smooth_residual_twin_matches_pallas(n, iters, rng):
+    """The V-cycle's finest level as the JAX package runs it: K3, then K2 with
+    theta = -1 on the smoothed u."""
+    u, b = f32(rng, 2, n, n), f32(rng, 2, n, n)
+    ref_u = pallas_jacobi_smooth(jnp.asarray(u), jnp.asarray(b), iters=iters, interpret=True)
+    ref_r = pallas_residual(jnp.full_like(ref_u, -1.0), ref_u, jnp.asarray(b), interpret=True)
+    ours_u, ours_r = sk.plain_smooth_residual(torch.from_numpy(u), torch.from_numpy(b),
+                                              iters=iters)
+    assert_rel_close(ours_u, ref_u, 1e-6, "smoothed u")
+    assert_rel_close(ours_r, ref_r, 1e-6, "residual")
+
+
 def test_cpu_wrappers_run_twins_and_count_nothing(rng):
     sk.reset_launch_counts()
     u, f = torch.from_numpy(f32(rng, 2, 3, 20, 20)), torch.from_numpy(f32(rng, 2, 3, 20, 20))
@@ -102,6 +117,10 @@ def test_cpu_wrappers_run_twins_and_count_nothing(rng):
     for iters in (0, 2, 5):
         assert torch.equal(sk.kernel_jacobi_smooth(u, f, iters=iters, omega=0.7),
                            sk.plain_jacobi_smooth(u, f, iters=iters, omega=0.7))
+    for iters in (0, 2, 3, 5):
+        got = sk.kernel_smooth_residual(u, f, h=0.05, omega=0.7, iters=iters)
+        ref = sk.plain_smooth_residual(u, f, h=0.05, omega=0.7, iters=iters)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert set(sk.launch_counts()) == {fn.__name__ for fn in sk.KERNELS}
     assert sum(sk.launch_counts().values()) == 0
 
@@ -116,3 +135,9 @@ def test_wrappers_reject_bad_shapes(rng):
         sk.kernel_jacobi_smooth(u[..., :19], u[..., :19])
     with pytest.raises(ValueError):
         sk.kernel_jacobi_smooth(u, u, iters=-1)
+    with pytest.raises(ValueError):
+        sk.kernel_smooth_residual(u, u[:1])
+    with pytest.raises(ValueError):
+        sk.kernel_smooth_residual(u[..., :19], u[..., :19])
+    with pytest.raises(ValueError):
+        sk.kernel_smooth_residual(u, u, iters=-1)
