@@ -51,7 +51,27 @@ Phases (any failed check raises, and the script exits non-zero):
    load into a U-Net; one step's loss and gradients with the kernels and
    with the twins agree; a warm step's time, its device launches (at most
    445; 455 before the loss was fused), a profiler split by kernel class and
-   the device busy share.
+   the device busy share;
+11. solvers -- ``solve_poisson`` on 4 seeded problems: dst, mg (12 cycles)
+   and mgcg (tol 1e-6, at most 60 iterations) at 640^2, cg (tol 1e-6) at
+   160^2, each against a float64 DST solve (``SOLVER_LIMITS``), with
+   iterations, wall and device busy share; CG's launch identities (K1 = 1 +
+   the loop's iterations; for mgcg the fused pre-smooth and residual and K3
+   too); the shipped convergence-test cadence against the other one, bit
+   for bit, with both walls (and cg at 640^2 for 200 iterations); K1 with
+   theta = -1 timed at CG's shape;
+12. freeze -- four full-width experts written as run dirs and frozen by
+   ``python -m superresolution_for_pdes_tpu_torch upscale`` (the dispatcher,
+   in this process) with the flags of ``scripts/rebuild_champion.sh:133-140``
+   (32 calibration scenes, grid gains, tiles 40/80/80): the gains finite, a
+   second calibration bit-identical, ``run_bundle`` on the saved bundle
+   against the fields the command wrote, the peak device memory;
+13. evaluate -- protocols 1 and 5 of ``scripts/eval_champion_bundle.sh`` on
+   that bundle (``statistical --n_examples 20 --seed 3``;
+   ``resolution_comparison --k 10 11 --seed 0`` with ``--refine_cycles 2``):
+   per-level ML time per scene, direct-solve time, rel-L2 (random weights:
+   no statement of model quality), the artifacts, and the refined sweep's
+   launches (6 fused, 6 K3, 0 K2).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true, "device":
@@ -67,6 +87,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import torch
 
@@ -361,6 +382,291 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
                         "busy_share": busy / step_ms, "launches_per_step": launches,
                         "classes_ms": classes, "regen_s": hist["regen_seconds"],
                         "epoch_s": hist["epoch_seconds"], "run_s": run_s}}
+
+
+def run_command(argv: list):
+    """``python -m superresolution_for_pdes_tpu_torch <argv>`` in this process
+    (the same dispatcher), so that its launches and peak memory can be read
+    and it runs with this process's TF32 settings; returns the command's
+    result."""
+    from superresolution_for_pdes_tpu_torch.__main__ import main as dispatch
+
+    saved = sys.argv
+    sys.argv = ["python -m superresolution_for_pdes_tpu_torch", *argv]
+    try:
+        return dispatch()
+    finally:
+        sys.argv = saved
+
+
+def random_expert(seed: int) -> dict:
+    """A full-width 5-channel BatchNorm AttentionUNet's state_dict from a seed,
+    with non-trivial running statistics."""
+    from superresolution_for_pdes_tpu_torch.models import AttentionUNet
+
+    g = torch.Generator().manual_seed(seed)
+    model = AttentionUNet(in_channels=5, generator=g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 2.0, generator=g)
+    return model.state_dict()
+
+
+# limits of the solvers against a float64 DST solve, max|u - u64| / max|u64|
+# (about 3x what the first run on an H100 measured: 3.0e-6, 6.9e-6, 5.5e-6, 3.3e-6)
+SOLVER_LIMITS = {"dst": 1e-5, "mg": 2e-5, "mgcg": 2e-5, "cg": 1e-5}
+
+
+def phase_solvers(dev: torch.device, card: str, smi: str) -> dict:
+    """Phase 11: ``solve_poisson`` with each method on 4 seeded problems (f
+    from k ~ U(6, 12), theta ~ U(0.5, 2)) -- dst, mg (12 cycles) and mgcg (tol
+    1e-6, at most 60 iterations) at 640^2, cg (tol 1e-6) at 160^2 -- against a
+    float64 DST solve; CG's launch identities (K1 = 1 + the loop's
+    iterations, and for mgcg the fused pre-smooth and residual and K3 too);
+    the convergence test every CONVERGENCE_CHUNK iterations against one every
+    iteration, bit for bit, with both walls; K1 timed at CG's shape."""
+    import torch.nn.functional as F
+
+    from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+    from superresolution_for_pdes_tpu_torch.ops.grid import forcing_term
+    from superresolution_for_pdes_tpu_torch.solver import cg as cg_mod
+    from superresolution_for_pdes_tpu_torch.solver import solve_poisson
+    from superresolution_for_pdes_tpu_torch.solver.dst import solve_poisson_dst
+    from superresolution_for_pdes_tpu_torch.solver.multigrid import mg_preconditioner
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def problem(n):
+        k = torch.rand(4, 2, device=dev, generator=gen) * 6.0 + 6.0
+        return (forcing_term(k[:, 0], k[:, 1], n, device=dev),
+                torch.rand(4, n, n, device=dev, generator=gen) * 1.5 + 0.5)
+
+    p640, p160 = problem(640), problem(160)
+    cases = {"dst 640": (p640, "dst", {}), "mg 640": (p640, "mg", {"n_cycles": 12}),
+             "mgcg 640": (p640, "mgcg", {"tol": 1e-6, "max_iters": 60}),
+             "cg 160": (p160, "cg", {"tol": 1e-6, "max_iters": 2000}),
+             # no convergence: 200 iterations, the chunk's effect per iteration
+             "cg 640 x200": (p640, "cg", {"tol": 1e-12, "max_iters": 200})}
+    total = {fn.__name__: 0 for fn in sk.KERNELS}
+    results = {}
+    for name, ((f, theta), method, kw) in cases.items():
+        def solve(f=f, theta=theta, method=method, kw=kw):
+            return solve_poisson(f, theta, method, **kw)
+
+        solve()
+        sk.reset_launch_counts()
+        u = solve()
+        torch.cuda.synchronize()
+        counts = sk.launch_counts()
+        for key, c in counts.items():
+            total[key] += c
+        wall = wall_ms(solve)
+        pwall, busy, _ = profile(solve)
+        rec = dict(method=method, wall_ms=wall, device_ms=busy, busy_share=busy / pwall,
+                   launches=counts)
+        if not name.endswith("x200"):
+            ref = solve_poisson_dst(f.double(), theta.double(), refine_iters=1)
+            rec["rel_err"] = float((u.double() - ref).abs().max() / ref.abs().max())
+            rec["limit"] = SOLVER_LIMITS[method]
+            check(rec["rel_err"] <= rec["limit"],
+                  f"{name}: {rec['rel_err']:.3e} from the float64 solve > {rec['limit']}")
+        if method in ("cg", "mgcg"):
+            precond = mg_preconditioner if method == "mgcg" else None
+            u2, iters = cg_mod.cg_solve(lambda p: sk.kernel_apply_operator(-1.0, p),
+                                        -(f / theta), tol=kw["tol"], max_iters=kw["max_iters"],
+                                        precond=precond)
+            iters = int(iters)
+            chunk = cg_mod.convergence_chunk(precond)
+            ran = cg_mod.iterations_run(iters, kw["max_iters"], chunk)
+            check(torch.equal(u2, u), f"{name}: cg_solve and solve_poisson differ")
+            cycles = 1 + ran if method == "mgcg" else 0
+            expected = {"kernel_apply_operator": 1 + ran, "kernel_pde_loss_forward": 0,
+                        "kernel_pde_loss_backward": 0, "kernel_residual": 0,
+                        "kernel_jacobi_smooth": cycles, "kernel_smooth_residual": cycles}
+            check(counts == expected, f"{name}: launches {counts} != {expected}")
+            if not name.endswith("x200"):
+                check(iters < kw["max_iters"], f"{name}: not converged in {iters} iterations")
+            # the other cadence, for the record: a test every iteration for
+            # plain CG, every CONVERGENCE_CHUNK iterations for mgcg
+            other = 1 if chunk > 1 else cg_mod.CONVERGENCE_CHUNK
+            saved = cg_mod.convergence_chunk
+            cg_mod.convergence_chunk = lambda precond: other
+            try:
+                u_other = solve()
+                wall_other = wall_ms(solve)
+            finally:
+                cg_mod.convergence_chunk = saved
+            check(torch.equal(u_other, u), f"{name}: chunks {chunk} and {other} differ")
+            rec.update(iters=iters, loop_iterations=ran, chunk=chunk, other_chunk=other,
+                       wall_ms_other_chunk=wall_other)
+        results[name] = rec
+        log(f"[solvers] {name}: {rec.get('iters', '-')} iterations "
+            f"(loop ran {rec.get('loop_iterations', '-')}), wall {wall:.2f} ms"
+            + (f" testing every {rec['chunk']} (every {rec['other_chunk']}: "
+               f"{rec['wall_ms_other_chunk']:.2f} ms, same u bit for bit)"
+               if "chunk" in rec else "")
+            + f", device busy {busy:.2f} ms = {100 * rec['busy_share']:.0f}% of the profiled "
+            f"wall" + (f", max|u - u64|/max|u64| {rec['rel_err']:.3e} (limit {rec['limit']})"
+                       if "rel_err" in rec else "")
+            + f"; launches {counts}; on {smi}")
+    # K1 at CG's shape: theta = -1 on (4, 640, 640)
+    u = torch.randn(4, 640, 640, device=dev, generator=gen)
+    w5 = -laplacian_weights(640, dev)
+    points = u.numel()
+
+    def k1(u=u):
+        return sk.kernel_apply_operator(-1.0, u)
+
+    timing = dict(ms=time_ms(k1), plain_ms=time_ms(lambda: sk.plain_apply_operator(-1.0, u)),
+                  library_ms=time_ms(lambda: F.conv2d(u[:, None], w5, padding=1)),
+                  bound=bound(2 * 4 * points, 7 * points),
+                  device_ms=device_ms_per_call(k1, K1_NAME), shape=list(u.shape))
+    diff = float((k1() - sk.plain_apply_operator(-1.0, u)).abs().max())
+    check(diff == 0.0, f"K1 theta -1 differs from its twin by {diff}")
+    log(f"[solvers] K1 theta -1 at (4, 640, 640): device {timing['device_ms'] * 1e3:.3f} us per "
+        f"launch, {timing['ms']:.4f} ms per call, twin {timing['plain_ms']:.4f} ms, -F.conv2d "
+        f"{timing['library_ms']:.4f} ms, bound {timing['bound'][0] * 1e3:.3f} us; bit-identical "
+        f"to its twin; on {smi}")
+    return {"launches": total, "cases": results, "k1_timing": timing}
+
+
+def phase_freeze(dev: torch.device, card: str, root) -> dict:
+    """Phase 12: four full-width experts (standing for R7, SFL1E, SFL2F and
+    SFL34G) written as run dirs, frozen by the ``upscale`` command with the
+    flags of ``scripts/rebuild_champion.sh:133-140``; the gains finite, a second
+    calibration bit-identical, ``run_bundle`` on the saved bundle against the
+    fields the command wrote; peak device memory."""
+    import numpy as np
+
+    from superresolution_for_pdes_tpu_torch.cascade.modal import calibrate_modal
+    from superresolution_for_pdes_tpu_torch.cascade.multires import solve_multi_resolution
+    from superresolution_for_pdes_tpu_torch.deploy import load_bundle, run_bundle
+    from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+    from superresolution_for_pdes_tpu_torch.train.checkpoint import save_checkpoint
+
+    runs = {}
+    for i, name in enumerate(("r7", "sfl1e", "sfl2f", "sfl34g")):
+        run = root / f"{name}_run_0"
+        save_checkpoint(run / "best_model", {"model": random_expert(200 + i)})
+        (run / "config.json").write_text(json.dumps(
+            {"model": "attention_unet", "scale_channels": True, "model_norm": "batch"}))
+        runs[name] = str(run)
+    bundle, out = root / "champion_bundle", root / "upscaled_champion"
+    argv = ["upscale", "--model_path", runs["r7"], "--model_path_level1", runs["sfl1e"],
+            "--model_path_level", "2", runs["sfl2f"], "--model_path_level", "3", runs["sfl34g"],
+            "--model_path_level", "4", runs["sfl34g"], "--stats_mode", "tile",
+            "--tile_levels", "40", "80", "80", "--amp_calibrate", "32", "--amp_k", "8", "12",
+            "--amp_bpo", "4", "--save_bundle", str(bundle), "--target", "640",
+            "--out", str(out)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    run_command(argv)
+    torch.cuda.synchronize()
+    freeze_s = time.perf_counter() - t0
+    counts = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check(sum(counts.values()) == 0, f"the freeze launched stencil kernels: {counts}")
+    with np.load(bundle / "amp.npz") as z:
+        gains = [z[f"level{i}"] for i in range(len(z.files))]
+    check(len(gains) == 4 and all(g.shape == (48, 48) and np.isfinite(g).all() for g in gains),
+          "bundle gains: 4 finite 48x48 grids")
+    model, variables, _, manifest = load_bundle(bundle, dev)
+    check(manifest["stats_mode"] == "tile" and manifest["coarse_tile"] == (40, 80, 80)
+          and manifest["overlap"] is False and len(variables) == 5,
+          f"manifest {manifest}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = calibrate_modal(model, variables, 100, n_scenes=32, target_resolution=640,
+                            k_range=(8.0, 12.0), stats_mode="tile",
+                            coarse_tile=manifest["coarse_tile"], bands_per_octave=4,
+                            kind="grid", device=dev)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    calib_peak = torch.cuda.max_memory_allocated()
+    identical = all(np.array_equal(a.cpu().numpy(), g) for a, g in zip(again, gains))
+    check(identical, "a second calibration gave other gains")
+    full = solve_multi_resolution(0, resolutions=(80, 160, 320, 640), k_range=(10.0, 11.0),
+                                  device=dev)
+    scene = {"u": {40: full["u"][40]}, "f": full["f"], "theta": full["theta"]}
+    served = run_bundle(bundle, scene, 640, device=dev)
+    worst = 0.0
+    for r in (80, 160, 320, 640):
+        ref = torch.from_numpy(np.load(out / f"ml_{r}x{r}.npy")).to(dev)
+        rel = float((served[r] - ref).abs().max() / ref.abs().max())
+        worst = max(worst, rel)
+        check(rel <= 1e-6, f"run_bundle at {r}: {rel:.3e} of max|field| from the command's")
+    log(f"[freeze] upscale --save_bundle (32 calibration scenes to 640^2): {freeze_s:.2f} s, "
+        f"peak device memory {peak / 2**30:.2f} GiB; gains finite; a second calibration "
+        f"{calib_s:.2f} s, peak {calib_peak / 2**30:.2f} GiB, bit-identical {identical}; "
+        f"run_bundle on the saved bundle within {worst:.2e} of max|field| of the assembled "
+        f"cascade (limit 1e-6); launches {counts}; on {card}")
+    return {"launches": counts, "bundle": bundle,
+            "summary": {"freeze_s": freeze_s, "peak_gib": peak / 2**30, "calibrate_s": calib_s,
+                        "calibrate_peak_gib": calib_peak / 2**30,
+                        "run_bundle_rel_diff": worst}}
+
+
+def phase_evaluate(dev: torch.device, card: str, root, bundle) -> dict:
+    """Phase 13: protocols 1 and 5 of ``scripts/eval_champion_bundle.sh`` on
+    the frozen bundle (``statistical --n_examples 20 --seed 3``;
+    ``resolution_comparison --k 10 11 --seed 0`` with ``--refine_cycles 2``
+    added), their artifacts, and the refined sweep's launches."""
+    from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+
+    stat_dir, sweep_dir = root / "statistical_bundle_n20_seed3", root / "resolution_bundle"
+    sk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stat = run_command(["statistical", "--bundle", str(bundle), "--n_examples", "20",
+                        "--seed", "3", "--out", str(stat_dir)])
+    torch.cuda.synchronize()
+    stat_s = time.perf_counter() - t0
+    stat_peak = torch.cuda.max_memory_allocated()
+    stat_counts = sk.launch_counts()
+    check(sum(stat_counts.values()) == 0, f"statistical launched stencil kernels: {stat_counts}")
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    sweep = run_command(["resolution_comparison", "--bundle", str(bundle), "--k", "10", "11",
+                         "--seed", "0", "--refine_cycles", "2", "--out", str(sweep_dir)])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    sweep_counts = sk.launch_counts()
+    expected = {"kernel_apply_operator": 0, "kernel_pde_loss_forward": 0,
+                "kernel_pde_loss_backward": 0, "kernel_residual": 0,
+                "kernel_jacobi_smooth": 6, "kernel_smooth_residual": 6}
+    check(sweep_counts == expected, f"refined sweep launches {sweep_counts} != {expected}")
+    for path in (stat_dir / "summary.txt", stat_dir / "statistical_results.json",
+                 stat_dir / "statistical_results.csv", sweep_dir / "resolution_metrics.json"):
+        check(path.is_file(), f"{path.name} was not written")
+    prev = 0.0
+    for res, a in stat["aggregate"].items():
+        check(all(math.isfinite(v) for v in a.values()), f"statistical {res}: {a}")
+        log(f"[evaluate] statistical {res}x{res}: ML {1e3 * (a['ml_time_mean'] - prev):.3f} ms "
+            f"per scene for this level ({1e3 * a['ml_time_mean']:.3f} ms to reach it), direct "
+            f"solve {1e3 * a['solve_time_mean']:.4f} ms per scene, rel-L2 ML "
+            f"{a['ml_rel_l2_mean']:.4f} bilinear {a['bilinear_rel_l2_mean']:.4f} (random "
+            f"weights: says nothing of model quality)")
+        prev = a["ml_time_mean"]
+    m = sweep["metrics"]
+    for res in (80, 160, 320, 640):
+        ml, phys = m["ml_multi_level"][res]["relative_l2"], m["ml_physics"][res]["relative_l2"]
+        check(math.isfinite(ml) and math.isfinite(phys), f"sweep {res}: non-finite rel-L2")
+        log(f"[evaluate] resolution sweep {res}x{res}: rel-L2 ML {ml:.4f}, ML + 2 V-cycles "
+            f"{phys:.4f}, bilinear {m['bilinear_direct'][res]['relative_l2']:.4f}")
+    log(f"[evaluate] statistical (20 scenes) {stat_s:.2f} s, peak device memory "
+        f"{stat_peak / 2**30:.2f} GiB; resolution_comparison {sweep_s:.2f} s, launches "
+        f"{sweep_counts}; artifacts written; on {card}")
+    return {"statistical_launches": stat_counts, "sweep_launches": sweep_counts,
+            "summary": {"statistical_s": stat_s, "statistical_peak_gib": stat_peak / 2**30,
+                        "sweep_s": sweep_s,
+                        "ml_ms_to_reach": {r: 1e3 * a["ml_time_mean"]
+                                           for r, a in stat["aggregate"].items()},
+                        "solve_ms": {r: 1e3 * a["solve_time_mean"]
+                                     for r, a in stat["aggregate"].items()}}}
 
 
 def main() -> None:
@@ -777,12 +1083,23 @@ def main() -> None:
     trained = phase_train(dev, card, smi)
     lap("10 train")
 
+    # ----------------------------------------------------------- 11. solvers
+    solved = phase_solvers(dev, card, smi)
+    lap("11 solvers")
+
+    # ------------------------------------------------- 12-13. freeze, evaluate
+    with tempfile.TemporaryDirectory() as tmp:
+        frozen = phase_freeze(dev, card, Path(tmp))
+        lap("12 freeze")
+        evaluated = phase_evaluate(dev, card, Path(tmp), frozen["bundle"])
+        lap("13 evaluate")
+
     t40 = loss_timing[(32, 40, 40)]
-    timing = {"K1": dict(k1_timing[(32, 40, 40)],
-                         launches=trained["launches"]["kernel_apply_operator"],
+    timing = {"K1": dict(solved["k1_timing"],
+                         launches=solved["launches"]["kernel_apply_operator"],
                          check_launches=k1_op_launches,
-                         path="train CLI, 2 epochs (phase 10), which no longer runs it; "
-                              "check_launches: operator and adjoint driven once (phase 8)"),
+                         path="solve_poisson cg and mgcg (phase 11): the matvec -L p with "
+                              "theta = -1; check_launches: operator and adjoint (phase 8)"),
               "K1 loss forward": dict(t40["forward"], shape=t40["shape"],
                                       launches=trained["launches"]["kernel_pde_loss_forward"],
                                       path="train CLI, 2 epochs (phase 10)"),
@@ -803,6 +1120,15 @@ def main() -> None:
              "K3": "kernel_jacobi_smooth", "K3+K2": "kernel_smooth_residual"}
     lines = {"K1": "100", "K1 loss forward": "100", "K1 loss backward": "100", "K2": "115",
              "K3": "131", "K3+K2": "131 and :115"}
+    by_path = {  # each path driven with the counts set to 0 just before and read just after
+        "refined scene to 640^2 (phase 5)": counts,
+        "multigrid solve, 640^2 (phase 6)": mg_counts,
+        "train CLI, 2 epochs (phase 10)": trained["launches"],
+        "solve_poisson, 4 methods (phase 11)": solved["launches"],
+        "upscale --save_bundle (phase 12)": frozen["launches"],
+        "statistical --bundle (phase 13)": evaluated["statistical_launches"],
+        "resolution_comparison --refine_cycles 2 (phase 13)": evaluated["sweep_launches"],
+    }
     rows = []
     for key in keys:
         t = timing[key]
@@ -819,10 +1145,13 @@ def main() -> None:
         for extra in ("check_launches", "pair_ms", "pair_device_ms"):
             if extra in t:
                 rows[-1][extra] = t[extra]
+        rows[-1]["launches_by_path"] = {path: c[names[key]] for path, c in by_path.items()}
     rows[1]["loss_max_rel_err"] = loss_rel
     log(f"[summary] K3 timing {k3_timing}; K2 timing {k2_timing}; fused timing "
         f"{fused_timing}; K3 sweeps {sweeps}; loss timing {loss_timing}")
     log(f"[summary] generate {generated}; train {trained['summary']}")
+    log(f"[summary] solvers {solved['cases']}; freeze {frozen['summary']}; evaluate "
+        f"{evaluated['summary']}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

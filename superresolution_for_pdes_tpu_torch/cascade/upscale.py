@@ -17,11 +17,18 @@ uses entry ``min(i, len - 1)``). The model runs in eval mode under
 A leading scene axis on the data fields is a batch dimension written out:
 every scene's tiles go through the same model call. Eval-mode BatchNorm is
 per sample, so this equals the JAX package's ``lax.map`` over scenes.
+
+:func:`ml_cascade` runs :func:`level_program` once per level;
+:func:`ml_cascade_stepwise` runs the same calls and synchronises after each,
+so each level's wall time is observable (the statistical harness's timings);
+:func:`calibrate_amplitude` fits one amplitude per level on self-generated
+scenes (the modal gains are :func:`~.modal.calibrate_modal`'s).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+import time
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -157,12 +164,119 @@ def _level_body(model, weights, current: torch.Tensor, f_next: torch.Tensor,
     return out
 
 
-def _resolutions(start: int, target: int) -> tuple[int, ...]:
+def level_resolutions(start: int, target: int) -> tuple[int, ...]:
+    """The resolutions the cascade reaches from ``start`` to ``target``, doubling."""
     res, out = start, []
     while res < target:
         res *= 2
         out.append(res)
     return tuple(out)
+
+
+def check_cascade_args(model: nn.Module, variables, stats_mode: str,
+                       train_stats: Optional[NormStats]) -> None:
+    """Validate a cascade's stats mode and weights, and put the model in eval
+    mode (the entry points' shared preamble)."""
+    if stats_mode not in STATS_MODES:
+        raise ValueError(f"unknown stats_mode: {stats_mode!r}")
+    if stats_mode == "train" and train_stats is None:
+        raise ValueError("stats_mode='train' requires train_stats")
+    model.eval()
+    for w in (variables if isinstance(variables, (list, tuple)) else [variables]):
+        if isinstance(w, nn.Module):
+            w.eval()
+        elif w is not None and not isinstance(w, Mapping):
+            raise TypeError(f"variables entries must be state_dicts or modules, got {type(w)}")
+
+
+def level_program(model: nn.Module, variables, i: int, current: torch.Tensor, data: Dict,
+                  res: int, stats_mode: str = "scene", train_stats: Optional[NormStats] = None,
+                  coarse_tile=20, overlap=False, symmetrize: bool = False,
+                  refine_cycles: int = 0, amp=None,
+                  use_kernels: bool | None = None) -> torch.Tensor:
+    """Level ``i`` of the cascade, to ``res``, on ``current`` (one field or a
+    scene batch) with ``data``'s f and theta at ``res`` (and its u, for the
+    oracle stats), then the level's correction ``amp`` if given. Runs under
+    ``torch.no_grad()``; :func:`check_cascade_args` comes first."""
+    if stats_mode == "oracle":
+        source, kind = data["u"][res], "field"
+    elif stats_mode == "scene":
+        source, kind = current, "field"
+    elif stats_mode == "train":
+        source, kind = train_stats, "precomputed"
+    else:
+        source, kind = None, "per_tile"
+    with torch.no_grad():
+        out = _level_body(
+            model, _level_weights(variables, i), current, data["f"][res], data["theta"][res],
+            source, _level_tile(coarse_tile, i), _level_overlap(overlap, i), kind, symmetrize,
+            refine_cycles, use_kernels)
+        return out if amp is None else apply_level_correction(out, amp)
+
+
+def _sync(t: torch.Tensor) -> None:
+    """Wait for the device work that produced ``t``."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def ml_cascade_stepwise(
+    model: nn.Module,
+    variables,
+    data: Dict,
+    target_resolution: int,
+    stats_mode: str = "scene",
+    train_stats: Optional[NormStats] = None,
+    start_resolution: int = 40,
+    coarse_tile=20,
+    overlap=False,
+    symmetrize: bool = False,
+    refine_cycles: int = 0,
+    amp_levels=None,
+    use_kernels: bool | None = None,
+) -> Tuple[Dict[int, torch.Tensor], Dict[int, float]]:
+    """The cascade one level at a time, returning ``(fields by resolution,
+    wall seconds by resolution)``: each level ends in a device synchronisation,
+    so the cumulative sum of the level times is the time to reach each
+    resolution from one pass. The fields are :func:`ml_cascade`'s, bit for
+    bit (arguments as there)."""
+    check_cascade_args(model, variables, stats_mode, train_stats)
+    current = data["u"][start_resolution]
+    outs: Dict[int, torch.Tensor] = {}
+    times: Dict[int, float] = {}
+    for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
+        t0 = time.perf_counter()
+        current = level_program(
+            model, variables, i, current, data, res, stats_mode, train_stats, coarse_tile,
+            overlap, symmetrize, refine_cycles,
+            None if amp_levels is None else amp_levels[i], use_kernels)
+        _sync(current)
+        times[res] = time.perf_counter() - t0
+        outs[res] = current
+    return outs, times
+
+
+def warmup_cascade_stepwise(model: nn.Module, variables, data: Dict, target_resolution: int,
+                            start_resolution: int = 40, **kwargs) -> None:
+    """Warm what a timed :func:`ml_cascade_stepwise` pass on ``data`` will
+    run, so that the pass measures execution (arguments as there).
+
+    The JAX package compiles each level's program here without running it.
+    PyTorch compiles nothing ahead, so this builds the stencil library where
+    the refine path will launch it on a card, and runs every level once on
+    the first scene of ``data`` only (the caching allocator and cuDNN's plans
+    warm): it costs 1/N of an N-scene pass of device work, where the JAX
+    package's warmup costs none.
+    """
+    first = {key: {r: (v[:1] if v.ndim == 3 else v) for r, v in data[key].items()}
+             for key in ("u", "f", "theta")}
+    if kwargs.get("refine_cycles", 0) > 0 and first["u"][start_resolution].is_cuda:
+        from superresolution_for_pdes_tpu_torch.ops.stencil_kernels import load_kernels
+
+        load_kernels()
+    fields, _ = ml_cascade_stepwise(model, variables, first, target_resolution,
+                                    start_resolution=start_resolution, **kwargs)
+    _sync(fields[max(fields)])
 
 
 def ml_cascade(
@@ -192,35 +306,15 @@ def ml_cascade(
     :func:`~superresolution_for_pdes_tpu_torch.cascade.modal.apply_level_correction`).
     ``use_kernels`` is passed to the refinement's V-cycles.
     """
-    if stats_mode not in STATS_MODES:
-        raise ValueError(f"unknown stats_mode: {stats_mode!r}")
-    if stats_mode == "train" and train_stats is None:
-        raise ValueError("stats_mode='train' requires train_stats")
-    model.eval()
-    for w in (variables if isinstance(variables, (list, tuple)) else [variables]):
-        if isinstance(w, nn.Module):
-            w.eval()
-        elif w is not None and not isinstance(w, Mapping):
-            raise TypeError(f"variables entries must be state_dicts or modules, got {type(w)}")
+    check_cascade_args(model, variables, stats_mode, train_stats)
     current = data["u"][start_resolution]
     outs: Dict[int, torch.Tensor] = {}
-    with torch.no_grad():
-        for i, res in enumerate(_resolutions(start_resolution, target_resolution)):
-            if stats_mode == "oracle":
-                source, kind = data["u"][res], "field"
-            elif stats_mode == "scene":
-                source, kind = current, "field"
-            elif stats_mode == "train":
-                source, kind = train_stats, "precomputed"
-            else:
-                source, kind = None, "per_tile"
-            current = _level_body(
-                model, _level_weights(variables, i), current, data["f"][res],
-                data["theta"][res], source, _level_tile(coarse_tile, i),
-                _level_overlap(overlap, i), kind, symmetrize, refine_cycles, use_kernels)
-            if amp_levels is not None:
-                current = apply_level_correction(current, amp_levels[i])
-            outs[res] = current
+    for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
+        current = level_program(
+            model, variables, i, current, data, res, stats_mode, train_stats, coarse_tile,
+            overlap, symmetrize, refine_cycles,
+            None if amp_levels is None else amp_levels[i], use_kernels)
+        outs[res] = current
     return outs
 
 
@@ -246,3 +340,48 @@ def multi_level_interpolation_upscale(u: torch.Tensor, target_resolution: int,
         res *= 2
         u = resize_align_corners(u, (res, res), method)
     return u
+
+
+def fit_amplitudes(model: nn.Module, variables, scenes: Dict, target_resolution: int = 640,
+                   stats_mode: str = "tile", train_stats: Optional[NormStats] = None,
+                   start_resolution: int = 40, coarse_tile=20, overlap=False,
+                   symmetrize: bool = False) -> torch.Tensor:
+    """The scene-consuming part of :func:`calibrate_amplitude`: one amplitude
+    per level, ``mean over scenes of std(truth) / std(pred)`` with the
+    population std (``correction=0``), each level run on the previous level's
+    corrected field."""
+    check_cascade_args(model, variables, stats_mode, train_stats)
+    current = scenes["u"][start_resolution]
+    amps = []
+    for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
+        pred = level_program(model, variables, i, current, scenes, res, stats_mode,
+                             train_stats, coarse_tile, overlap, symmetrize)
+        truth_std = torch.std(scenes["u"][res], dim=(-2, -1), correction=0)
+        pred_std = torch.std(pred, dim=(-2, -1), correction=0)
+        amp = torch.mean(truth_std / torch.clamp(pred_std, min=1e-30))
+        amps.append(amp)
+        current = pred * amp
+    return torch.stack(amps)
+
+
+def calibrate_amplitude(model: nn.Module, variables, seed_or_generator, n_scenes: int = 8,
+                        target_resolution: int = 640, k_range=(6.0, 12.0),
+                        stats_mode: str = "tile", train_stats: Optional[NormStats] = None,
+                        start_resolution: int = 40, coarse_tile=20, overlap=False,
+                        symmetrize: bool = False, theta_range=(0.5, 2.0),
+                        device=None) -> torch.Tensor:
+    """One amplitude per level from ``n_scenes`` scenes drawn from an int seed
+    or a ``torch.Generator`` (the training k-range and the exact solver; never
+    the scenes the cascade is evaluated on), solved on ``device`` (default
+    ``cuda``; raises without a card). Pass the result as ``amp_levels=`` to
+    the cascade. The weights must be on ``device``."""
+    from superresolution_for_pdes_tpu_torch.cascade.multires import (
+        solve_multi_resolution_batch,
+    )
+
+    scenes = solve_multi_resolution_batch(
+        seed_or_generator, n_scenes, n_coarse=start_resolution,
+        resolutions=level_resolutions(start_resolution, target_resolution),
+        k_range=tuple(k_range), theta_range=tuple(theta_range), device=device)
+    return fit_amplitudes(model, variables, scenes, target_resolution, stats_mode, train_stats,
+                          start_resolution, coarse_tile, overlap, symmetrize)

@@ -145,6 +145,12 @@ def _lib() -> _Lib:
                 int(lib.srpde_max_fused_iters()))
 
 
+def load_kernels() -> None:
+    """Build ``csrc/stencil.cu`` (at the first call) and load it, so that a
+    later launch does not pay for the build."""
+    _lib()
+
+
 def _per_slab(name: str, stat: torch.Tensor, batch: int) -> torch.Tensor:
     """A statistic as one value (0-d) or one per slab (``(batch, 1, 1)``)."""
     if stat.numel() == 1:

@@ -14,22 +14,14 @@ from superresolution_for_pdes_tpu.cascade import tiles as jtiles
 from superresolution_for_pdes_tpu.cascade import upscale as jup
 from superresolution_for_pdes_tpu.cascade.multires import solve_multi_resolution_batch
 from superresolution_for_pdes_tpu.data import normalization as jnorm
-from superresolution_for_pdes_tpu.models import AttentionUNet as FlaxUNet
-from superresolution_for_pdes_tpu.models.torch_import import torch_state_dict_to_variables
 from superresolution_for_pdes_tpu_torch.cascade import modal, tiles, upscale
 from superresolution_for_pdes_tpu_torch.cascade.multires import multi_resolution_from_params
 from superresolution_for_pdes_tpu_torch.data import normalization as norm
 from superresolution_for_pdes_tpu_torch.models import AttentionUNet
-from superresolution_for_pdes_tpu_torch.models.convert import variables_to_state_dict
 
-from torch_port_helpers import TINY, assert_rel_close, f32, np_
+from torch_port_helpers import TINY, T, assert_rel_close, f32, np_, tiny_experts
 
 CASCADE_REL = 1e-4  # max|diff| <= 1e-4 * max|JAX field| at every level
-
-
-def T(a):
-    """A torch tensor holding a copy of ``a`` (JAX arrays are read-only)."""
-    return torch.from_numpy(np.array(a))
 
 
 def _nchw(x):
@@ -154,32 +146,11 @@ def test_multires_deterministic_step_matches_jax(scenes):
 
 
 # ------------------------------------------------------------------ cascade
-def _tiny_variables(rng):
-    """Seeded 5-channel TINY Flax variables (numpy), non-trivial BatchNorm."""
-    layout = torch_state_dict_to_variables(
-        {k: v.numpy() for k, v in AttentionUNet(in_channels=5, **TINY).state_dict().items()})
-
-    def draw(path, leaf):
-        name, shape = path[-1].key, leaf.shape
-        if name == "kernel":
-            return rng.normal(0.0, np.sqrt(1.0 / (shape[0] * shape[1] * shape[2])), shape)
-        if name == "scale":
-            return rng.uniform(0.9, 1.1, shape)
-        if name == "var":
-            return rng.uniform(0.8, 1.25, shape)
-        return rng.normal(0.0, 0.02, shape)
-
-    return jax.tree_util.tree_map_with_path(lambda p, x: draw(p, x).astype(np.float32), layout)
-
-
 @pytest.fixture(scope="module")
 def experts():
     """Four per-level TINY experts: (Flax model, JAX variables, port model,
     port state_dicts)."""
-    rng = np.random.default_rng(5)
-    jvars = tuple(jax.tree.map(jnp.asarray, _tiny_variables(rng)) for _ in range(4))
-    sds = tuple(variables_to_state_dict(jax.device_get(v)) for v in jvars)
-    return FlaxUNet(in_channels=5, **TINY), jvars, AttentionUNet(in_channels=5, **TINY), sds
+    return tiny_experts(5)
 
 
 def _grid_gains(seed, levels):

@@ -2,7 +2,7 @@
 their plain twins (K2 and the fused pre-smooth and residual at every sweep
 count, aligned and misaligned), K1's adjoint, the fused physics-loss kernels (forward,
 backward, determinism, concurrent streams, launch counts), and the V-cycle with and
-without the kernels. Skipped without a
+without the kernels, and CG with K1 as its matvec. Skipped without a
 card; on one, run ``python -m pytest --noconftest -q tests/test_torch_cuda.py``
 (the suite's conftest imports JAX, which the card's machine need not have)."""
 
@@ -12,7 +12,8 @@ import torch
 from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
 from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
 from superresolution_for_pdes_tpu_torch.physics.loss import pde_residual_loss
-from superresolution_for_pdes_tpu_torch.solver.multigrid import vcycle
+from superresolution_for_pdes_tpu_torch.solver import cg
+from superresolution_for_pdes_tpu_torch.solver.multigrid import mg_preconditioner, vcycle
 
 import torch_port_helpers  # noqa: F401  (thread limit)
 
@@ -95,6 +96,25 @@ def test_vcycle_with_kernels_matches_dense_path(gen):
     dense = vcycle(u0, b, use_kernels=False)
     torch.cuda.synchronize()
     assert torch.allclose(fused, dense, rtol=1e-5, atol=1e-7 * float(dense.abs().max()))
+
+
+@pytest.mark.parametrize("n,precond", [(160, False), (161, False), (640, True)])
+def test_cg_matvec_on_k1_matches_its_twin(n, precond, gen):
+    """CG with K1 as its matvec gives its twin's iterates bit for bit over a
+    whole solve, with one K1 launch per loop iteration plus one."""
+    b = torch.randn(2, n, n, device="cuda", generator=gen)
+    pre = mg_preconditioner if precond else None
+    kw = dict(tol=1e-6, max_iters=300, precond=pre)
+    sk.reset_launch_counts()
+    u, iters = cg.cg_solve(lambda p: sk.kernel_apply_operator(-1.0, p), b, **kw)
+    counts = sk.launch_counts()
+    ref, ref_iters = cg.cg_solve(lambda p: sk.plain_apply_operator(-1.0, p), b, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(u, ref) and int(iters) == int(ref_iters) > 1
+    ran = cg.iterations_run(int(iters), 300, cg.convergence_chunk(pre))
+    assert counts["kernel_apply_operator"] == 1 + ran
+    assert counts["kernel_smooth_residual"] == counts["kernel_jacobi_smooth"] == (
+        1 + ran if precond else 0)
 
 
 def _misaligned(t):

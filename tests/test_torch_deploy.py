@@ -129,7 +129,11 @@ def test_cli_serves_bundle(tmp_path, bundles, scene):
 
 
 def test_cli_rejects_unported_routes(tmp_path):
-    for argv in (["--model_path", "x"], ["--bundle", "b", "--save_bundle", "y"],
-                 ["--bundle", "b", "--amp_calibrate", "4"], []):
-        with pytest.raises(SystemExit):
-            upscale_main(argv + ["--device", "cpu", "--out", str(tmp_path)])
+    """The model-assembly route is ported; reference ``.pth`` checkpoints are
+    not, and a model path that does not exist is an error."""
+    (tmp_path / "reference.pth").write_bytes(b"")
+    common = ["--target", "80", "--device", "cpu", "--out", str(tmp_path / "out")]
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        upscale_main(["--model_path", str(tmp_path / "reference.pth"), *common])
+    with pytest.raises(FileNotFoundError):
+        upscale_main(["--model_path", str(tmp_path / "missing"), *common])

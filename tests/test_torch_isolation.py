@@ -27,7 +27,7 @@ def test_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
     count, bad = int(out[0]), out[1] if len(out) > 1 else ""
-    assert count >= 42, count  # every module of the port was imported
+    assert count >= 49, count  # every module of the port was imported
     assert bad == "", f"the port pulled in {bad}"
 
 
@@ -39,13 +39,25 @@ def test_entry_points_raise_without_a_card(tmp_path):
         solve_multi_resolution,
         solve_multi_resolution_batch,
     )
-    from superresolution_for_pdes_tpu_torch.cli import generate_data, train
+    from superresolution_for_pdes_tpu_torch.cascade.modal import calibrate_modal
+    from superresolution_for_pdes_tpu_torch.cascade.upscale import calibrate_amplitude
+    from superresolution_for_pdes_tpu_torch.cli import (
+        generate_data,
+        resolution_comparison,
+        resolve_model,
+        statistical,
+        train,
+    )
     from superresolution_for_pdes_tpu_torch.cli.upscale import main
+    from superresolution_for_pdes_tpu_torch.eval.resolution import run_resolution_sweep
+    from superresolution_for_pdes_tpu_torch.eval.statistical import run_statistical_benchmark
+    from superresolution_for_pdes_tpu_torch.models import AttentionUNet
     from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
     from superresolution_for_pdes_tpu_torch.data.io import load_dataset
     from superresolution_for_pdes_tpu_torch.deploy import load_bundle, run_bundle
     from superresolution_for_pdes_tpu_torch.train import TrainConfig, train_model
 
+    model = AttentionUNet(in_channels=5)
     calls = (
         resolve_device,
         lambda: solve_multi_resolution(0, resolutions=(80,)),
@@ -58,6 +70,14 @@ def test_entry_points_raise_without_a_card(tmp_path):
         lambda: train_model({}, TrainConfig(), tmp_path),
         lambda: generate_data.main(["--n_standard", "2", "--out", str(tmp_path)]),
         lambda: train.main(["--generate", "--epochs", "1", "--results", str(tmp_path)]),
+        lambda: calibrate_modal(model, None, 0, n_scenes=2, target_resolution=80),
+        lambda: calibrate_amplitude(model, None, 0, n_scenes=2, target_resolution=80),
+        lambda: run_resolution_sweep(model, None, 0, resolutions=(80,)),
+        lambda: run_statistical_benchmark(model, None, 0, n_examples=2, resolutions=(80,)),
+        lambda: resolve_model(str(tmp_path)),
+        lambda: main(["--model_path", str(tmp_path), "--target", "80", "--out", str(tmp_path)]),
+        lambda: statistical.main(["--bundle", str(tmp_path), "--out", str(tmp_path)]),
+        lambda: resolution_comparison.main(["--bundle", str(tmp_path), "--out", str(tmp_path)]),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
