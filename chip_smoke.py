@@ -5,7 +5,8 @@
 
 Phases (any failed check raises, and the script exits non-zero):
 
-1. device -- the card's name and power limit; TF32 off for matmuls and cuDNN;
+1. device -- the card's name and power limit; TF32 off for matmuls and cuDNN
+   (as ``resolve_device`` sets it for every command);
 2. build  -- ``nvcc`` builds every ``csrc/*.cu`` of the port (sm_90a);
 3. kernels -- K2 (``kernel_residual``, theta scalar and field), K3
    (``kernel_jacobi_smooth``, 1 to 6 sweeps) and the fused pre-smooth and
@@ -65,13 +66,28 @@ Phases (any failed check raises, and the script exits non-zero):
    in this process) with the flags of ``scripts/rebuild_champion.sh:133-140``
    (32 calibration scenes, grid gains, tiles 40/80/80): the gains finite, a
    second calibration bit-identical, ``run_bundle`` on the saved bundle
-   against the fields the command wrote, the peak device memory;
+   against the fields the command wrote, the peak device memory; the
+   calibration's wall and peak with the default scene chunk and with one
+   chunk of all 32 scenes, whose gains and cascade fields agree;
 13. evaluate -- protocols 1 and 5 of ``scripts/eval_champion_bundle.sh`` on
    that bundle (``statistical --n_examples 20 --seed 3``;
    ``resolution_comparison --k 10 11 --seed 0`` with ``--refine_cycles 2``):
    per-level ML time per scene, direct-solve time, rel-L2 (random weights:
    no statement of model quality), the artifacts, and the refined sweep's
-   launches (6 fused, 6 K3, 0 K2).
+   launches (6 fused, 6 K3, 0 K2); the statistical harness's ML time per
+   scene and peak with the default scene chunk and with one chunk of 20;
+14. rebuild -- the ``train`` command with the flags of the champion's
+   self-fed stages (``scripts/rebuild_champion.sh:101-109`` SFL2F, then
+   ``:118-129`` SFL34G with that SFL2F run as its level-2 teacher), cut to 2
+   epochs, on phase 12's R7 and SFL1E run dirs: 768 and 2,048 harvested
+   80 -> 160 tiles per regeneration, finite; the teacher calibration,
+   regeneration, epoch and warm step walls at (32, 160^2), peak memory, and
+   the launches (the fused loss forward once per train step and validation
+   chunk, its backward once per step, no other kernel); then both checkpoints
+   serve levels 2 and 3-4 of one cascade to 640^2;
+15. single-level and diagnose -- ``compare_methods`` on phase 12's R7 run dir
+   with 1000 fresh samples, and ``diagnose`` on phase 13's
+   ``statistical_results.json``: walls and artifacts.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true, "device":
@@ -212,7 +228,7 @@ def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_generate(dev: torch.device, card: str, n_each: int = 1000, n_scenes: int = 64) -> dict:
+def phase_generate(dev: torch.device, smi: str, n_each: int = 1000, n_scenes: int = 64) -> dict:
     """Phase 9: the generate_data CLI at the published counts (``n_each``
     standard and subdomain samples per theta stratum, ``n_scenes`` cascade
     scenes), its file checked, standard samples held against a float64 DST
@@ -264,7 +280,7 @@ def phase_generate(dev: torch.device, card: str, n_each: int = 1000, n_scenes: i
     log(f"[generate] {n} samples ({n_tiles} cascade tiles): keys, shapes and finiteness ok; "
         f"{len(idx)} standard samples within {worst:.2e} of a float64 DST solve (tol 1e-5); "
         f"CLI wall {cli_s:.2f} s (first call, .npz write included), generation alone "
-        f"{warm_s:.3f} s warm, on {card}")
+        f"{warm_s:.3f} s warm, on {smi}")
     return {"samples": n, "cli_s": cli_s, "generation_warm_s": warm_s,
             "max_rel_err_vs_f64": worst}
 
@@ -375,7 +391,7 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
         f"fused: {UNFUSED_LAUNCHES_PER_STEP})")
     check(launches <= 445, f"{launches} device launches per step")
     log(f"[train] epochs: regeneration {hist['regen_seconds']} s, epoch wall "
-        f"{hist['epoch_seconds']} s; CLI run {run_s:.1f} s, on {card}")
+        f"{hist['epoch_seconds']} s; CLI run {run_s:.1f} s, on {smi}")
     return {"launches": counts,
             "summary": {"steps": steps, "eval_chunks": chunks, "step_ms": step_ms,
                         "samples_per_s": 32e3 / step_ms, "device_busy_ms": busy,
@@ -532,7 +548,7 @@ def phase_solvers(dev: torch.device, card: str, smi: str) -> dict:
     return {"launches": total, "cases": results, "k1_timing": timing}
 
 
-def phase_freeze(dev: torch.device, card: str, root) -> dict:
+def phase_freeze(dev: torch.device, smi: str, root) -> dict:
     """Phase 12: four full-width experts (standing for R7, SFL1E, SFL2F and
     SFL34G) written as run dirs, frozen by the ``upscale`` command with the
     flags of ``scripts/rebuild_champion.sh:133-140``; the gains finite, a second
@@ -541,7 +557,15 @@ def phase_freeze(dev: torch.device, card: str, root) -> dict:
     import numpy as np
 
     from superresolution_for_pdes_tpu_torch.cascade.modal import calibrate_modal
-    from superresolution_for_pdes_tpu_torch.cascade.multires import solve_multi_resolution
+    from superresolution_for_pdes_tpu_torch.cascade.multires import (
+        solve_multi_resolution,
+        solve_multi_resolution_batch,
+    )
+    from superresolution_for_pdes_tpu_torch.cascade.upscale import (
+        _level_tile,
+        default_scene_chunk,
+        ml_cascade,
+    )
     from superresolution_for_pdes_tpu_torch.deploy import load_bundle, run_bundle
     from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
     from superresolution_for_pdes_tpu_torch.train.checkpoint import save_checkpoint
@@ -578,17 +602,45 @@ def phase_freeze(dev: torch.device, card: str, root) -> dict:
     check(manifest["stats_mode"] == "tile" and manifest["coarse_tile"] == (40, 80, 80)
           and manifest["overlap"] is False and len(variables) == 5,
           f"manifest {manifest}")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    again = calibrate_modal(model, variables, 100, n_scenes=32, target_resolution=640,
-                            k_range=(8.0, 12.0), stats_mode="tile",
-                            coarse_tile=manifest["coarse_tile"], bands_per_octave=4,
-                            kind="grid", device=dev)
-    torch.cuda.synchronize()
-    calib_s = time.perf_counter() - t0
-    calib_peak = torch.cuda.max_memory_allocated()
+    calib = dict(target_resolution=640, k_range=(8.0, 12.0), stats_mode="tile",
+                 coarse_tile=manifest["coarse_tile"], bands_per_octave=4, kind="grid",
+                 device=dev)
+    # the default scene chunk, then one chunk of all 32 scenes (the layout before
+    # the cascade chunked scenes), each with its own peak
+    walls, peaks, fits = {}, {}, {}
+    for label, chunk in (("default", None), ("one chunk", 32)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fits[label] = calibrate_modal(model, variables, 100, n_scenes=32, scene_chunk=chunk,
+                                      **calib)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+        peaks[label] = torch.cuda.max_memory_allocated()
+    again = fits["default"]
+    calib_s, calib_peak = walls["default"], peaks["default"]
     identical = all(np.array_equal(a.cpu().numpy(), g) for a, g in zip(again, gains))
     check(identical, "a second calibration gave other gains")
+    gain_diff = max(float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(again, fits["one chunk"]))
+    # gains divide two band sums, a low-energy band two small ones (PERF.md section 2)
+    check(gain_diff <= 2e-4, f"chunked gains {gain_diff:.3e} of max|gain| from one chunk")
+    scenes = solve_multi_resolution_batch(100, 32, resolutions=(80, 160, 320, 640),
+                                          k_range=(8.0, 12.0), device=dev)
+    kw = dict(stats_mode="tile", coarse_tile=manifest["coarse_tile"], amp_levels=again)
+    by_chunk = {chunk: ml_cascade(model, variables, scenes, 640, scene_chunk=chunk, **kw)
+                for chunk in (None, 32)}
+    field_diff = max(float((by_chunk[None][r] - by_chunk[32][r]).abs().max()
+                           / by_chunk[32][r].abs().max()) for r in (80, 160, 320, 640))
+    check(field_diff <= 1e-5, f"chunked fields {field_diff:.3e} of max|field| from one chunk")
+    chunks = {r: default_scene_chunk(32, r // 2, _level_tile(manifest["coarse_tile"], i), False)
+              for i, r in enumerate((80, 160, 320, 640))}
+    log(f"[freeze] calibration of 32 scenes, default scene chunk (scenes per model call by "
+        f"level {chunks}): {walls['default']:.2f} s, peak {peaks['default'] / 2**30:.2f} GiB; "
+        f"one chunk of 32: {walls['one chunk']:.2f} s, peak {peaks['one chunk'] / 2**30:.2f} "
+        f"GiB; gains within {gain_diff:.2e} of max|gain| (limit 2e-4), the cascade's fields "
+        f"within {field_diff:.2e} of max|field| (limit 1e-5); on {smi}")
+    del by_chunk, scenes
     full = solve_multi_resolution(0, resolutions=(80, 160, 320, 640), k_range=(10.0, 11.0),
                                   device=dev)
     scene = {"u": {40: full["u"][40]}, "f": full["f"], "theta": full["theta"]}
@@ -603,18 +655,30 @@ def phase_freeze(dev: torch.device, card: str, root) -> dict:
         f"peak device memory {peak / 2**30:.2f} GiB; gains finite; a second calibration "
         f"{calib_s:.2f} s, peak {calib_peak / 2**30:.2f} GiB, bit-identical {identical}; "
         f"run_bundle on the saved bundle within {worst:.2e} of max|field| of the assembled "
-        f"cascade (limit 1e-6); launches {counts}; on {card}")
-    return {"launches": counts, "bundle": bundle,
+        f"cascade (limit 1e-6); launches {counts}; on {smi}")
+    return {"launches": counts, "bundle": bundle, "runs": runs,
             "summary": {"freeze_s": freeze_s, "peak_gib": peak / 2**30, "calibrate_s": calib_s,
                         "calibrate_peak_gib": calib_peak / 2**30,
-                        "run_bundle_rel_diff": worst}}
+                        "calibrate_one_chunk_s": walls["one chunk"],
+                        "calibrate_one_chunk_peak_gib": peaks["one chunk"] / 2**30,
+                        "scene_chunks": chunks, "chunk_gain_rel_diff": gain_diff,
+                        "chunk_field_rel_diff": field_diff, "run_bundle_rel_diff": worst}}
 
 
-def phase_evaluate(dev: torch.device, card: str, root, bundle) -> dict:
+def phase_evaluate(dev: torch.device, smi: str, root, bundle) -> dict:
     """Phase 13: protocols 1 and 5 of ``scripts/eval_champion_bundle.sh`` on
     the frozen bundle (``statistical --n_examples 20 --seed 3``;
     ``resolution_comparison --k 10 11 --seed 0`` with ``--refine_cycles 2``
-    added), their artifacts, and the refined sweep's launches."""
+    added), their artifacts, and the refined sweep's launches; the statistical
+    harness's ML time per scene and peak with the default scene chunk and with
+    one chunk of all 20 scenes."""
+    from superresolution_for_pdes_tpu_torch.cascade.multires import solve_multi_resolution_batch
+    from superresolution_for_pdes_tpu_torch.cascade.upscale import level_resolutions
+    from superresolution_for_pdes_tpu_torch.deploy import load_bundle
+    from superresolution_for_pdes_tpu_torch.eval.statistical import (
+        solve_times,
+        statistics_on_scenes,
+    )
     from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
 
     stat_dir, sweep_dir = root / "statistical_bundle_n20_seed3", root / "resolution_bundle"
@@ -659,14 +723,212 @@ def phase_evaluate(dev: torch.device, card: str, root, bundle) -> dict:
             f"{phys:.4f}, bilinear {m['bilinear_direct'][res]['relative_l2']:.4f}")
     log(f"[evaluate] statistical (20 scenes) {stat_s:.2f} s, peak device memory "
         f"{stat_peak / 2**30:.2f} GiB; resolution_comparison {sweep_s:.2f} s, launches "
-        f"{sweep_counts}; artifacts written; on {card}")
+        f"{sweep_counts}; artifacts written; on {smi}")
+
+    # the statistical command's scenes through its harness with the default
+    # scene chunk and with one chunk of all 20, in turns
+    model, variables, amp, manifest = load_bundle(bundle, dev)
+    scenes = solve_multi_resolution_batch(3, 20, resolutions=level_resolutions(40, 640),
+                                          k_range=(8.0, 12.0), device=dev)
+    solve_s = solve_times(scenes)
+    per_scene = {"default": [], "one chunk": []}
+    chunk_peaks = {}
+    for label in ("default", "one chunk", "one chunk", "default"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, agg = statistics_on_scenes(
+            model, variables, scenes, (80, 160, 320, 640), solve_s,
+            stats_mode=manifest["stats_mode"], overlap=manifest["overlap"],
+            coarse_tile=manifest["coarse_tile"], amp_levels=amp,
+            scene_chunk=20 if label == "one chunk" else None)
+        chunk_peaks[label] = torch.cuda.max_memory_allocated() / 2**30
+        per_scene[label].append(1e3 * agg[640]["ml_time_mean"])
+    log(f"[evaluate] statistical's harness on its 20 scenes, ML ms per scene to reach 640^2: "
+        f"default chunk {per_scene['default']} (peak {chunk_peaks['default']:.2f} GiB), one "
+        f"chunk of 20 {per_scene['one chunk']} (peak {chunk_peaks['one chunk']:.2f} GiB); on "
+        f"{smi}")
+    del scenes
     return {"statistical_launches": stat_counts, "sweep_launches": sweep_counts,
+            "statistical_dir": stat_dir,
             "summary": {"statistical_s": stat_s, "statistical_peak_gib": stat_peak / 2**30,
-                        "sweep_s": sweep_s,
+                        "sweep_s": sweep_s, "ml_ms_per_scene_640_by_chunk": per_scene,
+                        "peak_gib_by_chunk": chunk_peaks,
                         "ml_ms_to_reach": {r: 1e3 * a["ml_time_mean"]
                                            for r, a in stat["aggregate"].items()},
                         "solve_ms": {r: 1e3 * a["solve_time_mean"]
                                      for r, a in stat["aggregate"].items()}}}
+
+
+# scripts/rebuild_champion.sh:101-109 and :118-129, stages sfl2f and sfl34g; the
+# one cut: 2 epochs, not 1200. The teacher run dirs are filled in.
+SFL2F = ["--generate", "--gen_stream", "--gen_theta", "mixed", "--gen_standard", "0",
+         "--gen_subdomain", "0", "--gen_cascade_scenes", "0", "--gen_selffeed_scenes", "768",
+         "--gen_selffeed_model", "{R7}", "--gen_selffeed_model_level1", "{SFL1E}",
+         "--gen_selffeed_finest", "160", "--gen_selffeed_harvest_from", "80",
+         "--gen_selffeed_amp", "32", "--gen_selffeed_k", "6", "12",
+         "--gen_selffeed_teacher_tile", "40", "--gen_tile_size", "80",
+         "--gen_tiles_per_level", "1", "--gen_every", "2", "--normalization", "per_sample",
+         "--scale_channels", "--physics_weight", "0.3", "--epochs", "2",
+         "--early_stopping_patience", "60", "--plateau_patience", "30"]
+SFL34G = ["--generate", "--gen_stream", "--gen_theta", "mixed", "--gen_standard", "0",
+          "--gen_subdomain", "0", "--gen_cascade_scenes", "0", "--gen_selffeed_scenes", "128",
+          "--gen_selffeed_chunk", "32", "--gen_selffeed_model", "{R7}",
+          "--gen_selffeed_model_level1", "{SFL1E}", "--gen_selffeed_model_level", "2", "{SFL2F}",
+          "--gen_selffeed_finest", "640", "--gen_selffeed_harvest_from", "160",
+          "--gen_selffeed_amp", "32", "--gen_selffeed_k", "6", "12",
+          "--gen_selffeed_teacher_tile", "40", "80", "20", "--gen_tile_size", "80",
+          "--gen_tiles_per_level", "8", "--gen_every", "2", "--normalization", "per_sample",
+          "--scale_channels", "--physics_weight", "0.3", "--epochs", "2",
+          "--early_stopping_patience", "60", "--plateau_patience", "30"]
+
+
+def phase_rebuild(dev: torch.device, smi: str, root, runs: dict) -> dict:
+    """Phase 14: the champion's self-fed stages through the train command in
+    this process, SFL2F on phase 12's R7 and SFL1E run dirs, then SFL34G with
+    that SFL2F run as its level-2 teacher: harvested tiles per regeneration,
+    their finiteness, the teacher calibration, regeneration, epoch and warm
+    step walls at (32, 160^2), peak memory and launches; then both
+    checkpoints serve levels 2 and 3-4 of one cascade to 640^2."""
+    import types
+
+    from superresolution_for_pdes_tpu_torch.cascade import modal
+    from superresolution_for_pdes_tpu_torch.cascade.multires import solve_multi_resolution
+    from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
+    from superresolution_for_pdes_tpu_torch.cli import resolve_level_experts
+    from superresolution_for_pdes_tpu_torch.data import generate
+    from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+    from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
+
+    def timed(fn, record):
+        """``fn`` with the wall of each top-level call recorded (SFL34G's
+        scene chunks call the generator again from inside)."""
+        depth = [0]
+
+        def wrapper(*args, **kwargs):
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+            if depth[0] == 0:
+                torch.cuda.synchronize()
+                record.append((time.perf_counter() - t0, out))
+            return out
+
+        return wrapper
+
+    teachers = {"R7": runs["r7"], "SFL1E": runs["sfl1e"]}
+    stages = {}
+    for name, recipe, tiles_expected in (("SFL2F", SFL2F, 768), ("SFL34G", SFL34G, 128 * 8 * 2)):
+        argv = [a.format(**teachers) for a in recipe]
+        calibrations, regenerations = [], []
+        saved = modal.calibrate_modal, generate.selffeed_cascade_dataset
+        modal.calibrate_modal = timed(saved[0], calibrations)
+        generate.selffeed_cascade_dataset = timed(saved[1], regenerations)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            hist = run_command(["train", *argv, "--results", str(root / name.lower()),
+                                "--prefix", f"{name.lower()}_"])
+            torch.cuda.synchronize()
+        finally:
+            modal.calibrate_modal, generate.selffeed_cascade_dataset = saved
+        run_s = time.perf_counter() - t0
+        counts = sk.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps, chunks = sum(hist["train_steps"]), sum(hist["eval_chunks"])
+        expected = {"kernel_apply_operator": 0, "kernel_pde_loss_forward": steps + chunks,
+                    "kernel_pde_loss_backward": steps, "kernel_residual": 0,
+                    "kernel_jacobi_smooth": 0, "kernel_smooth_residual": 0}
+        check(counts == expected, f"{name}: launches {counts} != {expected}")
+        check(len(calibrations) == 1, f"{name}: {len(calibrations)} teacher calibrations")
+        tiles = [int(out["u_fine"].shape[0]) for _, out in regenerations]
+        check(tiles == [tiles_expected] * len(tiles) and len(tiles) == 2,
+              f"{name}: harvested tiles per regeneration {tiles}, expected {tiles_expected}")
+        for _, out in regenerations:
+            check(out["u_fine"].shape[-1] == 160 and out["u_coarse"].shape[-1] == 80,
+                  f"{name}: tiles {tuple(out['u_coarse'].shape)} -> {tuple(out['u_fine'].shape)}")
+            check(all(bool(torch.isfinite(v).all()) for k, v in out.items()
+                      if v.is_floating_point()), f"{name}: non-finite tiles")
+        losses = hist["train_loss"] + hist["val_loss"]
+        check(all(math.isfinite(v) for v in losses), f"{name}: non-finite losses {losses}")
+
+        # a warm train step at (32, 160^2) on the stage's own last tiles
+        model, stats = hist["model"], hist["stats"]
+        arrays = loop.prepare_arrays(regenerations[-1][1], stats, per_sample=True,
+                                     scale_channels=True)
+        batch = {k: v[:32] for k, v in arrays.items()}
+        opt = loop.make_optimizer(model, TrainConfig())
+        step_ms = time_ms(lambda: loop.train_step(model, opt, batch, stats, 0.3, 1.0), reps=10)
+        stages[name] = {
+            "run_dir": str(hist["run_dir"]), "tiles_per_regeneration": tiles,
+            "teacher_calibration_s": calibrations[0][0],
+            "regeneration_s": [s for s, _ in regenerations],
+            "epoch_s": hist["epoch_seconds"], "epoch_regen_s": hist["regen_seconds"],
+            "train_steps": hist["train_steps"], "eval_chunks": hist["eval_chunks"],
+            "step_ms": step_ms, "samples_per_s": 32e3 / step_ms, "peak_gib": peak,
+            "run_s": run_s, "launches": counts, "losses": losses}
+        log(f"[rebuild] {name} (train, {' '.join(recipe)}): {tiles} harvested tiles of 80 -> "
+            f"160 per regeneration, finite; teacher calibration {calibrations[0][0]:.2f} s, "
+            f"regenerations {[round(s, 3) for s, _ in regenerations]} s, epochs "
+            f"{[round(s, 2) for s in hist['epoch_seconds']]} s (regeneration inside "
+            f"{[round(s, 2) for s in hist['regen_seconds']]}); warm step at (32, 160^2) "
+            f"{step_ms:.2f} ms = {32e3 / step_ms:.0f} samples/s; {steps} steps + {chunks} "
+            f"validation chunks, launches {counts}; peak device memory {peak:.2f} GiB; "
+            f"command {run_s:.1f} s; on {smi}")
+        teachers[name] = stages[name]["run_dir"]
+        del hist, model, arrays, batch, opt, regenerations
+
+    # both stages serve their levels of one cascade to 640^2
+    ns = types.SimpleNamespace(model_path_level1=runs["sfl1e"],
+                               model_path_level=[("2", teachers["SFL2F"]),
+                                                 ("3", teachers["SFL34G"]),
+                                                 ("4", teachers["SFL34G"])])
+    model, variables, _ = resolve_level_experts(runs["r7"], ns, device=dev)
+    full = solve_multi_resolution(5, resolutions=(80, 160, 320, 640), k_range=(10.0, 11.0),
+                                  device=dev)
+    scene = {"u": {40: full["u"][40]}, "f": full["f"], "theta": full["theta"]}
+    fields = ml_cascade(model, variables, scene, 640, stats_mode="tile", coarse_tile=(40, 80, 80))
+    for r in (80, 160, 320, 640):
+        check(fields[r].shape == (r, r) and bool(torch.isfinite(fields[r]).all()),
+              f"served {r}: {tuple(fields[r].shape)}, finite {bool(torch.isfinite(fields[r]).all())}")
+    log(f"[rebuild] R7 + SFL1E + the rebuilt SFL2F (level 2) and SFL34G (levels 3-4) serve one "
+        f"cascade to 640^2 ({len(variables)} expert slots): finite fields at 80-640")
+    return {"stages": stages, "launches": {name: s["launches"] for name, s in stages.items()}}
+
+
+def phase_single_level(smi: str, root, r7_run: str, stat_dir) -> dict:
+    """Phase 15: ``compare_methods`` on phase 12's R7 run dir with 1000 fresh
+    samples, and ``diagnose`` on phase 13's ``statistical_results.json``."""
+    t0 = time.perf_counter()
+    result = run_command(["compare_methods", "--model_path", r7_run, "--n_samples", "1000",
+                          "--out", str(root / "compare_methods")])
+    torch.cuda.synchronize()
+    compare_s = time.perf_counter() - t0
+    check(result["n_samples"] == 1000 and all(
+        math.isfinite(v) for ms in result["summary"].values() for v in ms.values()),
+        f"compare_methods summary {result['summary']}")
+    check((root / "compare_methods" / "compare_metrics.json").is_file(),
+          "compare_metrics.json was not written")
+    t0 = time.perf_counter()
+    diag = run_command(["diagnose", "--results", str(stat_dir / "statistical_results.json"),
+                        "--focus", "640", "--out", str(root / "diagnosis.json")])
+    diagnose_s = time.perf_counter() - t0
+    check(diag["resolutions"] == [80, 160, 320, 640] and len(diag["table"]) == 20,
+          f"diagnose: resolutions {diag['resolutions']}, {len(diag['table'])} scenes")
+    check((root / "diagnosis.json").is_file(), "diagnosis.json was not written")
+    s = result["summary"]
+    log(f"[single-level] compare_methods, 1000 samples at 40^2 in one model batch: "
+        f"{compare_s:.2f} s (model load, solves, metrics and JSON included), MAE ML "
+        f"{s['ml']['mae']:.3e} bilinear {s['bilinear']['mae']:.3e} bicubic "
+        f"{s['bicubic']['mae']:.3e} (random weights); diagnose over 20 scenes {diagnose_s:.3f} s "
+        f"({len(diag['features'])} features); compare_metrics.json and diagnosis.json written; "
+        f"on {smi}")
+    return {"compare_s": compare_s, "diagnose_s": diagnose_s, "summary": s}
 
 
 def main() -> None:
@@ -859,7 +1121,7 @@ def main() -> None:
             err_served[r] = float(relative_l2(field, truth[r]))
             log(f"[serve] {r}x{r}: shape {tuple(field.shape)} finite {finite} rel-L2 "
                 f"{err_served[r]:.4f} wall {reach_ms[r]:.1f} ms to reach it (run_bundle, "
-                f"weights load included) on {card}")
+                f"weights load included) on {smi}")
         log(f"[serve] kernel launches on the bundle path: {serve_counts} (it runs no stencil)")
 
         # --------------------------------------------------------- 5. refine
@@ -882,7 +1144,7 @@ def main() -> None:
                 "kernel_pde_loss_backward": 0, "kernel_residual": 0,
                 "kernel_jacobi_smooth": 2 * len(kernel_levels),
                 "kernel_smooth_residual": 2 * len(kernel_levels)}
-    log(f"[refine] launches {counts}, expected {expected}; wall {refine_ms:.1f} ms on {card}")
+    log(f"[refine] launches {counts}, expected {expected}; wall {refine_ms:.1f} ms on {smi}")
     check(counts == expected, f"launch counts {counts} != {expected}")
     for r in levels:
         diff = float((refined[r] - plain[r]).abs().max())
@@ -909,7 +1171,7 @@ def main() -> None:
     mg_err = float((u_mg - u_dst).abs().max())
     mg_scale = float(u_dst.abs().max())
     log(f"[multigrid] 640^2 batch 4, 12 cycles: max|mg - dst| {mg_err:.3e} "
-        f"(max|u| {mg_scale:.3e}); wall {mg_ms:.1f} ms on {card}; launches {mg_counts}")
+        f"(max|u| {mg_scale:.3e}); wall {mg_ms:.1f} ms on {smi}; launches {mg_counts}")
     check(mg_err <= 1e-4 * mg_scale, "multigrid does not reach the DST solution")
     check(mg_counts["kernel_smooth_residual"] == 12 and mg_counts["kernel_jacobi_smooth"] == 12
           and mg_counts["kernel_residual"] == 0, f"multigrid launches {mg_counts}")
@@ -924,7 +1186,7 @@ def main() -> None:
         wall, busy, rows = profile(cascade)
         log(f"[profile] {label} cascade to 640: wall {plain_wall:.1f} ms ({wall:.1f} ms under "
             f"the profiler), device busy {busy:.1f} ms = {100 * busy / wall:.0f}% of the "
-            f"profiled wall, on {card}")
+            f"profiled wall, on {smi}")
         for cls, ms in by_class(rows).items():
             log(f"[profile]   {ms:8.3f} ms  {cls}")
         for name, ms, calls in rows[:6]:
@@ -1076,7 +1338,7 @@ def main() -> None:
     lap("8 K1")
 
     # ---------------------------------------------------------- 9. generate
-    generated = phase_generate(dev, card)
+    generated = phase_generate(dev, smi)
     lap("9 generate")
 
     # ------------------------------------------------------------- 10. train
@@ -1087,12 +1349,17 @@ def main() -> None:
     solved = phase_solvers(dev, card, smi)
     lap("11 solvers")
 
-    # ------------------------------------------------- 12-13. freeze, evaluate
+    # ------------------- 12-15. freeze, evaluate, rebuild, single-level and diagnose
     with tempfile.TemporaryDirectory() as tmp:
-        frozen = phase_freeze(dev, card, Path(tmp))
+        frozen = phase_freeze(dev, smi, Path(tmp))
         lap("12 freeze")
-        evaluated = phase_evaluate(dev, card, Path(tmp), frozen["bundle"])
+        evaluated = phase_evaluate(dev, smi, Path(tmp), frozen["bundle"])
         lap("13 evaluate")
+        rebuilt = phase_rebuild(dev, smi, Path(tmp), frozen["runs"])
+        lap("14 rebuild")
+        single = phase_single_level(smi, Path(tmp), frozen["runs"]["r7"],
+                                    evaluated["statistical_dir"])
+        lap("15 single-level and diagnose")
 
     t40 = loss_timing[(32, 40, 40)]
     timing = {"K1": dict(solved["k1_timing"],
@@ -1128,6 +1395,8 @@ def main() -> None:
         "upscale --save_bundle (phase 12)": frozen["launches"],
         "statistical --bundle (phase 13)": evaluated["statistical_launches"],
         "resolution_comparison --refine_cycles 2 (phase 13)": evaluated["sweep_launches"],
+        "train SFL2F, 2 epochs at (32, 160^2) (phase 14)": rebuilt["launches"]["SFL2F"],
+        "train SFL34G, 2 epochs at (32, 160^2) (phase 14)": rebuilt["launches"]["SFL34G"],
     }
     rows = []
     for key in keys:
@@ -1152,6 +1421,7 @@ def main() -> None:
     log(f"[summary] generate {generated}; train {trained['summary']}")
     log(f"[summary] solvers {solved['cases']}; freeze {frozen['summary']}; evaluate "
         f"{evaluated['summary']}")
+    log(f"[summary] rebuild {rebuilt['stages']}; single-level {single}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

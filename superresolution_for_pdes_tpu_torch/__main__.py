@@ -1,8 +1,7 @@
 """Subcommand dispatcher: ``python -m superresolution_for_pdes_tpu_torch <cmd> ...``.
 
-``generate_data``, ``train``, ``upscale``, ``statistical`` and
-``resolution_comparison`` are ported so far; the other commands of the JAX
-package are listed in ROADMAP.md.
+Seven of the JAX package's nine commands are ported; ``out_of_sample`` and
+``compare_test_cases`` are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -13,9 +12,11 @@ import sys
 COMMANDS = {
     "generate_data": "superresolution_for_pdes_tpu_torch.cli.generate_data",
     "train": "superresolution_for_pdes_tpu_torch.cli.train",
-    "upscale": "superresolution_for_pdes_tpu_torch.cli.upscale",
-    "statistical": "superresolution_for_pdes_tpu_torch.cli.statistical",
+    "compare_methods": "superresolution_for_pdes_tpu_torch.cli.compare_methods",
     "resolution_comparison": "superresolution_for_pdes_tpu_torch.cli.resolution_comparison",
+    "statistical": "superresolution_for_pdes_tpu_torch.cli.statistical",
+    "diagnose": "superresolution_for_pdes_tpu_torch.cli.diagnose",
+    "upscale": "superresolution_for_pdes_tpu_torch.cli.upscale",
 }
 
 

@@ -123,10 +123,13 @@ def fit_modal_gains(model, variables, scenes: Dict, target_resolution: int = 640
                     stats_mode: str = "tile", train_stats: Optional[NormStats] = None,
                     start_resolution: int = 40, coarse_tile=20, overlap=False,
                     symmetrize: bool = False, bands_per_octave: int = 4,
-                    kind: str = "radial") -> Tuple[torch.Tensor, ...]:
+                    kind: str = "radial",
+                    scene_chunk: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """The scene-consuming part of :func:`calibrate_modal`: per-level band
     gains fit on ``scenes`` (``{u, f, theta}`` by resolution, with a leading
-    scene axis), each level run on the previous level's corrected field."""
+    scene axis), each level run on the previous level's corrected field.
+    ``scene_chunk`` is the cascade's scenes per model call; each level's gains
+    are fit on all scenes at once."""
     from superresolution_for_pdes_tpu_torch.cascade.upscale import (
         check_cascade_args,
         level_program,
@@ -138,7 +141,8 @@ def fit_modal_gains(model, variables, scenes: Dict, target_resolution: int = 640
     current = scenes["u"][start_resolution]
     for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
         pred = level_program(model, variables, i, current, scenes, res, stats_mode,
-                             train_stats, coarse_tile, overlap, symmetrize)
+                             train_stats, coarse_tile, overlap, symmetrize,
+                             scene_chunk=scene_chunk)
         g = band_gains(pred, scenes["u"][res], bands_per_octave, kind)
         gains.append(g)
         current = apply_level_correction(pred, g)
@@ -151,12 +155,12 @@ def calibrate_modal(model, variables, seed_or_generator, n_scenes: int = 32,
                     start_resolution: int = 40, coarse_tile=20, overlap=False,
                     symmetrize: bool = False, bands_per_octave: int = 4,
                     kind: str = "radial", theta_range=(0.5, 2.0),
-                    device=None) -> Tuple[torch.Tensor, ...]:
+                    device=None, scene_chunk: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
     """Per-level modal gains from ``n_scenes`` scenes drawn from an int seed
     or a ``torch.Generator`` (k ~ U(``k_range``), theta ~ U(``theta_range``))
     and solved exactly on ``device`` (default ``cuda``; raises without a
     card). Pass the result as ``amp_levels=`` to the cascade. The weights
-    must be on ``device``."""
+    must be on ``device``; ``scene_chunk`` as for :func:`fit_modal_gains`."""
     from superresolution_for_pdes_tpu_torch.cascade.multires import (
         solve_multi_resolution_batch,
     )
@@ -168,4 +172,4 @@ def calibrate_modal(model, variables, seed_or_generator, n_scenes: int = 32,
         k_range=tuple(k_range), theta_range=tuple(theta_range), device=device)
     return fit_modal_gains(model, variables, scenes, target_resolution, stats_mode,
                            train_stats, start_resolution, coarse_tile, overlap, symmetrize,
-                           bands_per_octave, kind)
+                           bands_per_octave, kind, scene_chunk)

@@ -2,8 +2,8 @@
 ``cascade/upscale.py``).
 
 Per level: normalization stats (four modes), tiling of the current field and
-of the next level's f/theta, model input assembly, ONE batched model call over
-all tiles (all scenes too), denormalization, stitching, optional physics
+of the next level's f/theta, model input assembly, one batched model call over
+the tiles of a chunk of scenes, denormalization, stitching, optional physics
 refinement (``refine_cycles`` Galerkin V-cycles of the known PDE, whose finest
 level runs the stencil kernels K2/K3 on CUDA), and the optional per-level
 modal correction -- in that order.
@@ -14,9 +14,13 @@ architecture, or a sequence of those with one entry per level (level ``i``
 uses entry ``min(i, len - 1)``). The model runs in eval mode under
 ``torch.no_grad()``.
 
-A leading scene axis on the data fields is a batch dimension written out:
-every scene's tiles go through the same model call. Eval-mode BatchNorm is
-per sample, so this equals the JAX package's ``lax.map`` over scenes.
+A leading scene axis on the data fields is a batch dimension written out.
+Each level splits it into chunks of ``scene_chunk`` scenes (by default
+:func:`default_scene_chunk`); every chunk's tiles go through one model call,
+and the chunks are joined before the level's modal correction, so the gains'
+fits still see every scene. Eval-mode BatchNorm is per sample, so this
+computes what the JAX package's ``lax.map`` over scenes does, and the device
+memory of a level grows with the chunk, not with the scene count.
 
 :func:`ml_cascade` runs :func:`level_program` once per level;
 :func:`ml_cascade_stepwise` runs the same calls and synchronises after each,
@@ -50,6 +54,15 @@ from superresolution_for_pdes_tpu_torch.ops.resize import resize_align_corners
 from superresolution_for_pdes_tpu_torch.solver.multigrid import vcycle
 
 STATS_MODES = ("oracle", "scene", "train", "tile")
+
+# Fine grid points (tiles x fine-tile area, x8 with symmetrize) that one model
+# call takes by default. The champion's deepest level (320 -> 640 in 16 tiles
+# of 160^2) has 409,600 points per scene and held 1.3 GiB of device memory per
+# scene in one call (PERF.md section 5), so 2^22 points, 10 such scenes, keep
+# a level near 13 GiB however many scenes it runs; a call of 160 tiles of 160^2
+# is still a large batch for the card, and the shallow levels (6,400 points
+# per scene at 40 -> 80) stay one call up to 655 scenes.
+SCENE_CHUNK_POINTS = 1 << 22
 
 
 def _apply(model: nn.Module, weights, x: torch.Tensor) -> torch.Tensor:
@@ -164,6 +177,18 @@ def _level_body(model, weights, current: torch.Tensor, f_next: torch.Tensor,
     return out
 
 
+def default_scene_chunk(n_scenes: int, res: int, coarse_tile: int, overlap: bool,
+                        symmetrize: bool = False) -> int:
+    """Scenes per model call at a level whose input is ``res``: as few calls
+    as keep each within :data:`SCENE_CHUNK_POINTS` fine points, with the
+    scenes spread evenly over them."""
+    per_axis = ((res - coarse_tile) // (coarse_tile // 2) + 1 if overlap
+                else res // coarse_tile)
+    points = per_axis ** 2 * (2 * coarse_tile) ** 2 * (8 if symmetrize else 1)
+    calls = max(1, -(-n_scenes * points // SCENE_CHUNK_POINTS))
+    return -(-n_scenes // calls)
+
+
 def level_resolutions(start: int, target: int) -> tuple[int, ...]:
     """The resolutions the cascade reaches from ``start`` to ``target``, doubling."""
     res, out = start, []
@@ -193,11 +218,14 @@ def level_program(model: nn.Module, variables, i: int, current: torch.Tensor, da
                   res: int, stats_mode: str = "scene", train_stats: Optional[NormStats] = None,
                   coarse_tile=20, overlap=False, symmetrize: bool = False,
                   refine_cycles: int = 0, amp=None,
-                  use_kernels: bool | None = None) -> torch.Tensor:
+                  use_kernels: bool | None = None,
+                  scene_chunk: int | None = None) -> torch.Tensor:
     """Level ``i`` of the cascade, to ``res``, on ``current`` (one field or a
     scene batch) with ``data``'s f and theta at ``res`` (and its u, for the
-    oracle stats), then the level's correction ``amp`` if given. Runs under
-    ``torch.no_grad()``; :func:`check_cascade_args` comes first."""
+    oracle stats), then the level's correction ``amp`` if given. A scene
+    batch runs ``scene_chunk`` scenes per model call (default
+    :func:`default_scene_chunk`). Runs under ``torch.no_grad()``;
+    :func:`check_cascade_args` comes first."""
     if stats_mode == "oracle":
         source, kind = data["u"][res], "field"
     elif stats_mode == "scene":
@@ -206,11 +234,22 @@ def level_program(model: nn.Module, variables, i: int, current: torch.Tensor, da
         source, kind = train_stats, "precomputed"
     else:
         source, kind = None, "per_tile"
+    tile, ov = _level_tile(coarse_tile, i), _level_overlap(overlap, i)
+    f, theta = data["f"][res], data["theta"][res]
+
+    def body(sl):
+        return _level_body(model, _level_weights(variables, i), current[sl], f[sl], theta[sl],
+                           source[sl] if kind == "field" else source, tile, ov, kind,
+                           symmetrize, refine_cycles, use_kernels)
+
     with torch.no_grad():
-        out = _level_body(
-            model, _level_weights(variables, i), current, data["f"][res], data["theta"][res],
-            source, _level_tile(coarse_tile, i), _level_overlap(overlap, i), kind, symmetrize,
-            refine_cycles, use_kernels)
+        if current.ndim == 2:
+            out = body(slice(None))
+        else:
+            n = current.shape[0]
+            chunk = scene_chunk or default_scene_chunk(n, current.shape[-1], tile, ov, symmetrize)
+            parts = [body(slice(s, s + chunk)) for s in range(0, n, chunk)]
+            out = parts[0] if len(parts) == 1 else torch.cat(parts)
         return out if amp is None else apply_level_correction(out, amp)
 
 
@@ -234,6 +273,7 @@ def ml_cascade_stepwise(
     refine_cycles: int = 0,
     amp_levels=None,
     use_kernels: bool | None = None,
+    scene_chunk: int | None = None,
 ) -> Tuple[Dict[int, torch.Tensor], Dict[int, float]]:
     """The cascade one level at a time, returning ``(fields by resolution,
     wall seconds by resolution)``: each level ends in a device synchronisation,
@@ -249,7 +289,7 @@ def ml_cascade_stepwise(
         current = level_program(
             model, variables, i, current, data, res, stats_mode, train_stats, coarse_tile,
             overlap, symmetrize, refine_cycles,
-            None if amp_levels is None else amp_levels[i], use_kernels)
+            None if amp_levels is None else amp_levels[i], use_kernels, scene_chunk)
         _sync(current)
         times[res] = time.perf_counter() - t0
         outs[res] = current
@@ -293,6 +333,7 @@ def ml_cascade(
     refine_cycles: int = 0,
     amp_levels=None,
     use_kernels: bool | None = None,
+    scene_chunk: int | None = None,
 ) -> Dict[int, torch.Tensor]:
     """The cascade from ``start_resolution`` to ``target_resolution``,
     returning the ML field at every intermediate resolution.
@@ -304,7 +345,8 @@ def ml_cascade(
     (``train_stats``), ``"tile"`` (per-tile self-normalization).
     ``amp_levels`` is one gain array per level (see
     :func:`~superresolution_for_pdes_tpu_torch.cascade.modal.apply_level_correction`).
-    ``use_kernels`` is passed to the refinement's V-cycles.
+    ``use_kernels`` is passed to the refinement's V-cycles; ``scene_chunk``
+    is the scenes per model call (default :func:`default_scene_chunk`).
     """
     check_cascade_args(model, variables, stats_mode, train_stats)
     current = data["u"][start_resolution]
@@ -313,7 +355,7 @@ def ml_cascade(
         current = level_program(
             model, variables, i, current, data, res, stats_mode, train_stats, coarse_tile,
             overlap, symmetrize, refine_cycles,
-            None if amp_levels is None else amp_levels[i], use_kernels)
+            None if amp_levels is None else amp_levels[i], use_kernels, scene_chunk)
         outs[res] = current
     return outs
 

@@ -7,38 +7,72 @@
 
 Trains on ``--data`` (an ``.npz``) or, with ``--generate``, on a set
 generated on the device from ``--gen_seed``; ``--gen_stream`` regenerates the
-training split every ``--gen_every`` epochs. Writes
+training split every ``--gen_every`` epochs. ``--gen_selffeed_scenes N``
+mixes in (or, with every other count at 0, trains on) self-fed cascade tiles
+whose coarse inputs are a frozen teacher cascade's predictions
+(``--gen_selffeed_model`` and its per-level experts). Writes
 ``<results>/<prefix>run_<timestamp>/`` with ``config.json``,
 ``metrics.jsonl``, ``best_model/`` and ``final_model/``.
 
-Not yet ported (they raise): every ``--gen_selffeed_*`` flag,
-``--fused_epochs > 1``, ``--data_parallel``, ``--multihost``,
-``--tensorboard``, ``--dtype`` other than float32 and ``--model`` other than
-``attention_unet``.
+Not yet ported (they raise): ``--fused_epochs > 1``, ``--data_parallel``,
+``--multihost``, ``--tensorboard``, ``--dtype`` other than float32 and
+``--model resnet``.
 """
 
 from __future__ import annotations
 
 import argparse
-
-_SELFFEED_FLAGS = ("--gen_selffeed_scenes", "--gen_selffeed_model",
-                   "--gen_selffeed_model_level1", "--gen_selffeed_model_level",
-                   "--gen_selffeed_k", "--gen_selffeed_stats", "--gen_selffeed_finest",
-                   "--gen_selffeed_harvest_from", "--gen_selffeed_overlap_levels",
-                   "--gen_selffeed_amp", "--gen_selffeed_teacher_tile", "--gen_selffeed_chunk")
+import types
 
 
 def _not_ported(args) -> list[str]:
-    flags = [f for f in _SELFFEED_FLAGS if getattr(args, f.lstrip("-")) is not None]
-    if args.fused_epochs > 1:
-        flags.append("--fused_epochs > 1")
+    from superresolution_for_pdes_tpu_torch.models.registry import NOT_PORTED
+
+    flags = ["--fused_epochs > 1"] if args.fused_epochs > 1 else []
     flags += [f"--{name}" for name in ("data_parallel", "multihost", "tensorboard")
               if getattr(args, name)]
     if args.dtype != "float32":
         flags.append(f"--dtype {args.dtype}")
-    if args.model != "attention_unet":
+    if args.model in NOT_PORTED:
         flags.append(f"--model {args.model}")
     return flags
+
+
+def _make_selffeed(args, device):
+    """``generator -> self-fed tiles`` over the frozen teacher cascade,
+    resolved once (with its per-level experts and, with ``--gen_selffeed_amp
+    N``, its modal gains fit on N scenes), so that each regeneration pays only
+    for the scene solves and one teacher cascade. The teacher's modules are
+    its own: the cascade puts them in eval mode, never the student."""
+    from superresolution_for_pdes_tpu_torch.cascade.modal import calibrate_modal
+    from superresolution_for_pdes_tpu_torch.cli import resolve_level_experts
+    from superresolution_for_pdes_tpu_torch.data.generate import selffeed_cascade_dataset
+
+    ns = types.SimpleNamespace(model_path_level1=args.gen_selffeed_model_level1,
+                               model_path_level=args.gen_selffeed_model_level)
+    model, variables, _ = resolve_level_experts(args.gen_selffeed_model, ns, device=device)
+    overlap = (tuple(bool(v) for v in args.gen_selffeed_overlap_levels)
+               if args.gen_selffeed_overlap_levels is not None else False)
+    teacher_tile = (tuple(int(v) for v in args.gen_selffeed_teacher_tile)
+                    if args.gen_selffeed_teacher_tile is not None else 20)
+    amp_levels = None
+    if args.gen_selffeed_amp > 0:
+        amp_levels = calibrate_modal(
+            model, variables, 100, n_scenes=args.gen_selffeed_amp,
+            target_resolution=args.gen_selffeed_finest, k_range=tuple(args.gen_selffeed_k),
+            stats_mode=args.gen_selffeed_stats, kind="grid", overlap=overlap,
+            coarse_tile=teacher_tile, device=device)
+
+    def gen(generator):
+        return selffeed_cascade_dataset(
+            model, variables, generator, args.gen_selffeed_scenes,
+            tiles_per_level=args.gen_tiles_per_level, k_range=tuple(args.gen_selffeed_k),
+            finest=args.gen_selffeed_finest, stats_mode=args.gen_selffeed_stats,
+            amp_levels=amp_levels, harvest_from=args.gen_selffeed_harvest_from,
+            overlap=overlap, tile_size=args.gen_tile_size, teacher_tile=teacher_tile,
+            scene_chunk=args.gen_selffeed_chunk)
+
+    return gen
 
 
 def main(argv=None) -> dict:
@@ -59,11 +93,39 @@ def main(argv=None) -> dict:
     parser.add_argument("--gen_cascade_k", type=float, nargs=2, default=(0.5, 12.0))
     parser.add_argument("--gen_cascade_finest", type=int, default=640)
     parser.add_argument("--gen_cascade_coarsest", type=int, default=40)
+    parser.add_argument("--gen_selffeed_scenes", type=int, default=0,
+                        help="mix in self-fed cascade tiles whose coarse inputs are a frozen "
+                        "model's own cascade predictions; requires --gen_selffeed_model")
+    parser.add_argument("--gen_selffeed_model", type=str, default=None,
+                        help="run dir of the frozen teacher (it serves every level without "
+                        "an expert)")
+    parser.add_argument("--gen_selffeed_model_level1", type=str, default=None,
+                        help="optional level-1 expert of the teacher cascade")
+    parser.add_argument("--gen_selffeed_model_level", nargs=2, action="append",
+                        metavar=("LEVEL", "PATH"), default=None,
+                        help="per-level teacher expert (repeatable), as the eval commands' "
+                        "--model_path_level")
+    parser.add_argument("--gen_selffeed_k", type=float, nargs=2, default=(8.0, 12.0))
+    parser.add_argument("--gen_selffeed_stats", default="tile",
+                        choices=["oracle", "scene", "train", "tile"],
+                        help="stats mode of the teacher cascade")
+    parser.add_argument("--gen_selffeed_finest", type=int, default=640,
+                        help="finest resolution of the self-fed scenes")
+    parser.add_argument("--gen_selffeed_harvest_from", type=int, default=None,
+                        help="harvest only pairs whose coarse resolution is >= this")
+    parser.add_argument("--gen_selffeed_overlap_levels", type=int, nargs="+", default=None,
+                        metavar="0/1", help="per-level overlap schedule of the teacher")
+    parser.add_argument("--gen_selffeed_amp", type=int, default=0,
+                        help="fit the teacher's modal gains (grid kind) on N self-generated "
+                        "scenes first")
     parser.add_argument("--gen_tile_size", type=int, default=20,
-                        help="coarse window of generated cascade tiles (fine windows are "
-                        "2x); != 20 requires --gen_standard 0 --gen_subdomain 0")
-    for flag in _SELFFEED_FLAGS:
-        parser.add_argument(flag, nargs="*", default=None, help=argparse.SUPPRESS)
+                        help="coarse window of generated cascade and self-fed tiles (fine "
+                        "windows are 2x); != 20 requires --gen_standard 0 --gen_subdomain 0")
+    parser.add_argument("--gen_selffeed_teacher_tile", type=int, nargs="+", default=None,
+                        metavar="T", help="per-level tile schedule of the teacher (default 20)")
+    parser.add_argument("--gen_selffeed_chunk", type=int, default=None,
+                        help="generate the self-fed scenes in chunks of this many (must "
+                        "divide --gen_selffeed_scenes)")
     parser.add_argument("--fused_epochs", type=int, default=0, help=argparse.SUPPRESS)
     parser.add_argument("--gen_every", type=int, default=1,
                         help="with --gen_stream: regenerate every K epochs")
@@ -99,8 +161,23 @@ def main(argv=None) -> dict:
         parser.error(f"{', '.join(not_ported)}: not yet ported to PyTorch (see ROADMAP.md)")
     if args.gen_stream and not args.generate:
         parser.error("--gen_stream requires --generate")
+    selffeed = args.gen_selffeed_scenes > 0
+    if selffeed and args.gen_selffeed_model is None:
+        parser.error("--gen_selffeed_scenes requires --gen_selffeed_model")
+    n_mixed = args.gen_standard + args.gen_subdomain + args.gen_cascade_scenes
+    if args.generate and n_mixed == 0 and not selffeed:
+        parser.error("--generate with every sample count at 0")
+    if (args.gen_tile_size != 20 and selffeed
+            and (args.gen_standard > 0 or args.gen_subdomain > 0)):
+        parser.error("--gen_tile_size != 20 cannot be mixed with standard/subdomain samples; "
+                     "set --gen_standard 0 --gen_subdomain 0")
 
-    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
+    from superresolution_for_pdes_tpu_torch.data.generate import (
+        combine_datasets,
+        fold_in,
+        generate_mixed_dataset,
+        make_generator,
+    )
     from superresolution_for_pdes_tpu_torch.data.io import load_dataset
     from superresolution_for_pdes_tpu_torch.device import resolve_device
     from superresolution_for_pdes_tpu_torch.train import TrainConfig, train_model
@@ -125,27 +202,38 @@ def main(argv=None) -> dict:
         gen_every=args.gen_every,
     )
 
-    def gen_mixed(seed_or_generator):
-        return generate_mixed_dataset(
-            seed_or_generator,
-            n_standard=args.gen_standard,
-            n_subdomain=args.gen_subdomain,
-            theta=args.gen_theta,
-            standard_k_range=tuple(args.gen_standard_k),
-            subdomain_k_range=tuple(args.gen_subdomain_k),
-            n_cascade_scenes=args.gen_cascade_scenes,
-            cascade_tiles_per_level=args.gen_tiles_per_level,
-            cascade_k_range=tuple(args.gen_cascade_k),
-            cascade_finest=args.gen_cascade_finest,
-            cascade_coarsest=args.gen_cascade_coarsest,
-            cascade_tile_size=args.gen_tile_size,
-            device=device,
-        )
-
+    dataset_generator = None
     if args.generate:
-        if args.gen_standard + args.gen_subdomain + args.gen_cascade_scenes == 0:
-            parser.error("--generate with every sample count at 0")
-        dataset = gen_mixed(args.gen_seed)
+        selffeed_gen = _make_selffeed(args, device) if selffeed else None
+
+        def dataset_generator(gen):
+            """The mixed recipe, then the self-fed tiles drawn from
+            ``fold_in(gen, 7)``: the same seed gives the same set."""
+            dataset = None
+            if n_mixed > 0:
+                dataset = generate_mixed_dataset(
+                    gen,
+                    n_standard=args.gen_standard,
+                    n_subdomain=args.gen_subdomain,
+                    theta=args.gen_theta,
+                    standard_k_range=tuple(args.gen_standard_k),
+                    subdomain_k_range=tuple(args.gen_subdomain_k),
+                    n_cascade_scenes=args.gen_cascade_scenes,
+                    cascade_tiles_per_level=args.gen_tiles_per_level,
+                    cascade_k_range=tuple(args.gen_cascade_k),
+                    cascade_finest=args.gen_cascade_finest,
+                    cascade_coarsest=args.gen_cascade_coarsest,
+                    cascade_tile_size=args.gen_tile_size,
+                )
+            if selffeed_gen is not None:
+                tiles = selffeed_gen(fold_in(gen, 7))
+                dataset = tiles if dataset is None else combine_datasets(dataset, tiles)
+            return dataset
+
+        dataset = dataset_generator(make_generator(args.gen_seed, device))
+        if selffeed:
+            print(f"  {args.gen_selffeed_scenes} self-fed scenes (teacher "
+                  f"{args.gen_selffeed_model}, stats {args.gen_selffeed_stats})")
         print(f"generated {int(dataset['u_fine'].shape[0])} samples on {device} "
               f"(theta={args.gen_theta}, seed={args.gen_seed})")
     else:
@@ -153,7 +241,7 @@ def main(argv=None) -> dict:
 
     run_dir = create_run_dir(args.results, args.prefix)
     history = train_model(dataset, config, run_dir, resume_from=args.resume_from,
-                          dataset_generator=gen_mixed if args.gen_stream else None,
+                          dataset_generator=dataset_generator if args.gen_stream else None,
                           device=device)
     print(f"best val loss {history['best_val_loss']:.6f} at epoch "
           f"{history['best_epoch'] + 1} ({history['num_epochs']} epochs); run dir {run_dir}")

@@ -14,6 +14,8 @@ solver (``refine_iters=1``):
   every level, each level solved), and per level pair ``r -> 2r`` matched
   windows: ``tile`` points at r (origin ``randint(0, r - tile + 1)``) and the
   ``2 tile`` points at 2r from twice that origin;
+* self-fed cascade tiles: the same pairs, but the coarse input at every
+  level above the coarsest is a frozen teacher cascade's own prediction;
 * test sets: standard geometry with theta ones or ``U(0.5, 2)``.
 
 Each generator is split in two. A sampling step draws ``k1``, ``k2``, theta
@@ -24,9 +26,6 @@ takes them explicitly, so draws made elsewhere (the JAX package's) can be fed
 in. A seed does not give the JAX package's samples: the two random generators
 differ, and the port draws the parts of a mixed set one after another from
 one generator where JAX splits keys.
-
-``selffeed_cascade_dataset`` is not ported yet (it needs the stepwise cascade
-and calibration); it raises.
 """
 
 from __future__ import annotations
@@ -34,6 +33,7 @@ from __future__ import annotations
 import functools
 from typing import Dict, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from superresolution_for_pdes_tpu_torch.device import resolve_device
@@ -52,6 +52,14 @@ def make_generator(seed_or_generator, device=None) -> torch.Generator:
         return seed_or_generator
     gen = torch.Generator(device=resolve_device(device))
     return gen.manual_seed(int(seed_or_generator))
+
+
+def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
+    """A generator on ``gen``'s device seeded by a pure function of ``gen``'s
+    seed and ``data`` (the JAX package's ``jax.random.fold_in``): draws from
+    ``gen`` do not change it."""
+    state = np.random.SeedSequence([gen.initial_seed(), data]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=gen.device).manual_seed(int(state))
 
 
 def _uniform(gen: torch.Generator, shape, lo: float, hi: float, dtype) -> torch.Tensor:
@@ -361,7 +369,86 @@ def generate_cascade_dataset(seed_or_generator, n_scenes: int, tiles_per_level: 
                                    fields["theta"], resolutions, k1, k2, coarse_tile=tile_size)
 
 
-def selffeed_cascade_dataset(*args, **kwargs) -> Dataset:
-    """Self-feeding cascade tiles: not yet ported (see ROADMAP.md)."""
-    raise NotImplementedError(
-        "selffeed_cascade_dataset is not yet ported to PyTorch (see ROADMAP.md)")
+def _harvested(resolutions: List[int], harvest_from: int | None) -> List[int]:
+    """The resolutions whose pairs are harvested: those ``>= harvest_from``."""
+    if harvest_from is None:
+        return resolutions
+    harvested = [r for r in resolutions if r >= harvest_from]
+    if len(harvested) < 2:
+        raise ValueError(f"harvest_from={harvest_from} leaves no (coarse, fine) pair "
+                         f"in resolutions {resolutions}")
+    return harvested
+
+
+def selffeed_from_params(model, variables, k1: torch.Tensor, k2: torch.Tensor,
+                         theta_finest: torch.Tensor, origins: Sequence[torch.Tensor],
+                         stats_mode: str = "scene", refine_iters: int = 1, amp_levels=None,
+                         harvest_from: int | None = None, overlap=False, tile_size: int = 20,
+                         teacher_tile=20) -> Dataset:
+    """Deterministic step of :func:`selffeed_cascade_dataset`: one origins
+    tensor ``(B, T, 2)`` per harvested level pair."""
+    from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
+
+    fields, resolutions = cascade_scene_fields_from_params(k1, k2, theta_finest,
+                                                           refine_iters=refine_iters)
+    r0 = resolutions[0]
+    harvested = _harvested(resolutions, harvest_from)
+    if len(origins) != len(harvested) - 1:
+        raise ValueError(f"{len(origins)} origin tensors for the {len(harvested) - 1} "
+                         f"harvested level pairs of {harvested}")
+    # oracle stats read the truth at every level; the honest modes read only
+    # the cascade's start field
+    scene = {"u": fields["u"] if stats_mode == "oracle" else {r0: fields["u"][r0]},
+             "f": fields["f"], "theta": fields["theta"]}
+    # the teacher runs to the deepest coarse input, one level above the finest
+    # target, and not at all for a single pair (its input is the exact solve)
+    u_inputs = {r0: fields["u"][r0]}
+    if resolutions[-2] > r0:
+        preds = ml_cascade(model, variables, scene, resolutions[-2], stats_mode=stats_mode,
+                           amp_levels=amp_levels, overlap=overlap, coarse_tile=teacher_tile)
+        u_inputs.update(preds)
+    return _tile_pairs_from_levels(origins, u_inputs, fields["u"], fields["f"],
+                                   fields["theta"], harvested, k1, k2, coarse_tile=tile_size)
+
+
+def selffeed_cascade_dataset(model, variables, seed_or_generator, n_scenes: int,
+                             tiles_per_level: int = 8, k_range: Tuple[float, float] = (0.5, 12.0),
+                             finest: int = 640, constant_theta: bool = False,
+                             stats_mode: str = "scene", dtype=torch.float32,
+                             refine_iters: int = 1, amp_levels=None,
+                             harvest_from: int | None = None, overlap=False,
+                             tile_size: int = 20, teacher_tile=20,
+                             scene_chunk: int | None = None, device=None) -> Dataset:
+    """Self-feeding cascade tiles: the coarse inputs are the given (frozen)
+    model's own cascade predictions, the targets exact solves.
+
+    Fresh multi-resolution scenes go through the teacher cascade (``model``,
+    ``variables``: one set of weights or one per level; ``amp_levels``,
+    ``overlap`` and ``teacher_tile`` as the cascade takes them, a value or a
+    per-level sequence), and every level pair ``r -> 2r`` yields
+    ``tiles_per_level`` (prediction @ r, exact @ 2r) window pairs of
+    ``tile_size`` coarse points. ``harvest_from`` keeps only the pairs whose
+    coarse resolution is at least that. ``scene_chunk`` generates the scenes
+    in chunks of that many (it must divide ``n_scenes``), each drawing its
+    own scenes and origins from the generator in turn, so the solves' memory
+    follows the chunk; the teacher's model calls are chunked by the cascade
+    itself in any case."""
+    gen = make_generator(seed_or_generator, device)
+    kw = dict(tiles_per_level=tiles_per_level, k_range=k_range, finest=finest,
+              constant_theta=constant_theta, stats_mode=stats_mode, dtype=dtype,
+              refine_iters=refine_iters, amp_levels=amp_levels, harvest_from=harvest_from,
+              overlap=overlap, tile_size=tile_size, teacher_tile=teacher_tile)
+    if scene_chunk is not None and scene_chunk < n_scenes:
+        if n_scenes % scene_chunk:
+            raise ValueError(f"n_scenes={n_scenes} must be a multiple of "
+                             f"scene_chunk={scene_chunk}")
+        parts = [selffeed_cascade_dataset(model, variables, gen, scene_chunk, **kw)
+                 for _ in range(n_scenes // scene_chunk)]
+        return {k: torch.cat([p[k] for p in parts], dim=0) for k in parts[0]}
+    harvested = _harvested(cascade_resolutions(40, finest), harvest_from)
+    k1, k2 = _wave_numbers(gen, n_scenes, k_range, dtype)
+    theta_finest = _theta_fields(gen, n_scenes, finest, constant_theta, dtype)
+    origins = sample_tile_origins(gen, n_scenes, harvested, tiles_per_level, tile_size)
+    return selffeed_from_params(model, variables, k1, k2, theta_finest, origins, stats_mode,
+                                refine_iters, amp_levels, harvest_from, overlap, tile_size,
+                                teacher_tile)

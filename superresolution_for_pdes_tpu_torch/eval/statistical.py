@@ -2,7 +2,8 @@
 statistics (port of ``eval/statistical.py``).
 
 The N scenes (k ~ U(8, 12) by default) are solved exactly, batched, at every
-resolution; all of them go through ONE cascade pass, run level by level
+resolution; all of them go through ONE cascade pass (in chunks of scenes per
+model call, as the cascade chooses), run level by level
 (:func:`~superresolution_for_pdes_tpu_torch.cascade.upscale.ml_cascade_stepwise`),
 so the time to reach a target is the cumulative sum of its level times
 divided by N. Per-example MAE, RMSE and relative L2 of the cascade and of
@@ -72,17 +73,18 @@ def statistics_on_scenes(model, variables, scenes: Dict, resolutions: Sequence[i
                          solve_seconds: Dict[int, float], stats_mode: str = "oracle",
                          train_stats=None, overlap=False, symmetrize: bool = False,
                          refine_cycles: int = 0, amp_levels=None,
-                         coarse_tile=20) -> Tuple[list, Dict]:
+                         coarse_tile=20, scene_chunk=None) -> Tuple[list, Dict]:
     """The scene-consuming part of :func:`run_statistical_benchmark`:
     ``(records, aggregate)`` for ``scenes`` (``{k1, k2, u, f, theta}`` with a
-    leading scene axis) and the solve times per resolution."""
+    leading scene axis) and the solve times per resolution; ``scene_chunk`` is
+    the cascade's scenes per model call (default: its own)."""
     resolutions = tuple(resolutions)
     n = scenes["u"][40].shape[0]
     device = scenes["u"][40].device
     top = max(resolutions)
     cascade = dict(stats_mode=stats_mode, train_stats=train_stats, overlap=overlap,
                    symmetrize=symmetrize, refine_cycles=refine_cycles, amp_levels=amp_levels,
-                   coarse_tile=coarse_tile)
+                   coarse_tile=coarse_tile, scene_chunk=scene_chunk)
     warmup_cascade_stepwise(model, variables, scenes, top, **cascade)
     ml_fields, level_times = ml_cascade_stepwise(model, variables, scenes, top, **cascade)
     ml_times, cum = {}, 0.0

@@ -15,20 +15,20 @@ def _wide_unet(**kw):
     return AttentionUNet(**kw)
 
 
-def _resnet(**kw):
-    raise NotImplementedError(
-        "model 'resnet' is not ported to PyTorch yet (see ROADMAP.md, slice 4)")
-
-
 _REGISTRY: Dict[str, Callable[..., Any]] = {
     "attention_unet": AttentionUNet,
     "attention_unet_wide": _wide_unet,
-    "resnet": _resnet,
 }
+
+# names of the JAX package's registry that the port does not build yet
+NOT_PORTED = ("resnet",)
 
 
 def build_model(name: str, **overrides):
     """Build a model on the CPU; move it with ``.to(device)``."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"model {name!r} is not ported to PyTorch yet (see ROADMAP.md, Queue 1)")
     try:
         builder = _REGISTRY[name]
     except KeyError:

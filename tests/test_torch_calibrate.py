@@ -54,6 +54,7 @@ def test_band_gains_match_jax(kind):
 
 
 KW = dict(target_resolution=160, k_range=(6.0, 12.0), stats_mode="tile", coarse_tile=(20, 40))
+KW_NO_K = {k: v for k, v in KW.items() if k != "k_range"}
 
 
 def test_calibrate_amplitude_matches_jax(experts):
@@ -103,3 +104,45 @@ def test_ml_cascade_stepwise_matches_jax_and_ml_cascade(experts):
     assert all(torch.equal(fused[res], ours[res]) for res in (80, 160))
     upscale.warmup_cascade_stepwise(tmodel, sds, tsc, 160, amp_levels=[T(g) for g in gains],
                                     **kw)
+
+
+def test_scene_chunks_match_one_call(experts):
+    """A scene batch in chunks of 1, 3 and all scenes per model call, with
+    every stats mode that reads a per-scene field, refinement and gains. One
+    chunk of all scenes is the same call, bit for bit. Smaller chunks agree to
+    float32 rounding only: on the CPU a tile's bits depend on its place in the
+    batch (the vectorized sigmoid of the attention gates rounds a buffer's
+    partial last vector on a scalar path, 1 ulp apart), and the chunked
+    calibration's gains must still come from every scene."""
+    _, _, tmodel, sds = experts
+    _, tsc = _scenes(jax.random.key(24), 5, (8.0, 12.0))
+    rng = np.random.default_rng(6)
+    gains = [T(rng.uniform(0.8, 1.2, (48, 48)).astype(np.float32)) for _ in range(2)]
+    for kw in (dict(stats_mode="tile", coarse_tile=(20, 40)),
+               dict(stats_mode="scene", coarse_tile=20, overlap=(True, False), refine_cycles=1),
+               dict(stats_mode="oracle", coarse_tile=20)):
+        ref = upscale.ml_cascade(tmodel, sds, tsc, 160, amp_levels=gains, scene_chunk=5, **kw)
+        default = upscale.ml_cascade(tmodel, sds, tsc, 160, amp_levels=gains, **kw)
+        assert all(torch.equal(default[r], ref[r]) for r in (80, 160))
+        for chunk in (1, 3):
+            ours = upscale.ml_cascade(tmodel, sds, tsc, 160, amp_levels=gains, scene_chunk=chunk,
+                                      **kw)
+            for res in (80, 160):
+                assert_rel_close(ours[res], ref[res], 1e-5, f"{kw} chunk {chunk} level {res}")
+    one = modal.fit_modal_gains(tmodel, sds, tsc, kind="grid", scene_chunk=5, **KW_NO_K)
+    for chunk in (1, 3):
+        chunked = modal.fit_modal_gains(tmodel, sds, tsc, kind="grid", scene_chunk=chunk,
+                                        **KW_NO_K)
+        for level, (g, r) in enumerate(zip(chunked, one)):
+            assert_rel_close(g, r, 1e-5, f"gains, chunk {chunk} level {level}")
+
+
+@pytest.mark.parametrize("n_scenes,res,tile,overlap,symmetrize,expected", [
+    (32, 320, 80, False, False, 8),    # the champion calibration's 640^2 level: 4 calls
+    (20, 320, 80, False, False, 10),   # statistical's 20 scenes: 2 calls
+    (32, 160, 80, False, False, 32),   # the 320^2 level: one call
+    (768, 40, 40, False, False, 384),  # SFL2F's teacher at 80^2: 2 calls
+    (8, 320, 80, True, True, 1),       # overlap (49 windows) and 8 symmetries
+])
+def test_default_scene_chunk(n_scenes, res, tile, overlap, symmetrize, expected):
+    assert upscale.default_scene_chunk(n_scenes, res, tile, overlap, symmetrize) == expected

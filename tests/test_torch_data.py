@@ -137,8 +137,8 @@ def test_combine_and_recipe_errors():
         generate.generate_mixed_dataset(0, 1, 1, theta="other", device="cpu")
     with pytest.raises(ValueError, match="empty"):
         generate.generate_mixed_dataset(0, 0, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        generate.selffeed_cascade_dataset(None, None, 0, 1)
+    with pytest.raises(ValueError, match="scene_chunk"):
+        generate.selffeed_cascade_dataset(None, None, 0, 3, scene_chunk=2, device="cpu")
 
 
 def test_npz_loads_across_packages(tmp_path):

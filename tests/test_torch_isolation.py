@@ -42,6 +42,7 @@ def test_entry_points_raise_without_a_card(tmp_path):
     from superresolution_for_pdes_tpu_torch.cascade.modal import calibrate_modal
     from superresolution_for_pdes_tpu_torch.cascade.upscale import calibrate_amplitude
     from superresolution_for_pdes_tpu_torch.cli import (
+        compare_methods,
         generate_data,
         resolution_comparison,
         resolve_model,
@@ -52,7 +53,10 @@ def test_entry_points_raise_without_a_card(tmp_path):
     from superresolution_for_pdes_tpu_torch.eval.resolution import run_resolution_sweep
     from superresolution_for_pdes_tpu_torch.eval.statistical import run_statistical_benchmark
     from superresolution_for_pdes_tpu_torch.models import AttentionUNet
-    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
+    from superresolution_for_pdes_tpu_torch.data.generate import (
+        generate_mixed_dataset,
+        selffeed_cascade_dataset,
+    )
     from superresolution_for_pdes_tpu_torch.data.io import load_dataset
     from superresolution_for_pdes_tpu_torch.deploy import load_bundle, run_bundle
     from superresolution_for_pdes_tpu_torch.train import TrainConfig, train_model
@@ -78,8 +82,27 @@ def test_entry_points_raise_without_a_card(tmp_path):
         lambda: main(["--model_path", str(tmp_path), "--target", "80", "--out", str(tmp_path)]),
         lambda: statistical.main(["--bundle", str(tmp_path), "--out", str(tmp_path)]),
         lambda: resolution_comparison.main(["--bundle", str(tmp_path), "--out", str(tmp_path)]),
+        lambda: compare_methods.main(["--model_path", str(tmp_path), "--out", str(tmp_path)]),
+        lambda: selffeed_cascade_dataset(model, None, 0, 2, finest=80),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_resolve_device_turns_tf32_off_for_a_card(monkeypatch):
+    """Every entry point resolves its device here: for a card, matmuls and
+    cuDNN's convolutions run in full float32 (TF32 off), whatever the process
+    had set."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    from superresolution_for_pdes_tpu_torch.device import resolve_device
+
+    assert resolve_device("cuda") == torch.device("cuda")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    torch.backends.cudnn.allow_tf32 = True
+    resolve_device("cpu")  # the CPU leaves the card's settings alone
+    assert torch.backends.cudnn.allow_tf32 is True

@@ -4,6 +4,8 @@ per-sample stats, physics weight 0.3), AdamW with global-norm clipping
 against the optax chain, and tiny CPU runs of ``train_model`` and of the
 ``generate_data`` and ``train`` CLIs, resume included."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -261,6 +263,18 @@ def test_clis_generate_train_and_resume(tmp_path, capsys):
     (gen_cli, ["--plot_samples", "3"]),
 ])
 def test_unported_flags_raise(cli, argv, capsys):
+    """Each flag the port does not run raises; the self-fed counts without a
+    teacher raise the JAX package's error."""
     with pytest.raises(SystemExit):
         cli.main([*argv, "--device", "cpu"])
-    assert "not yet ported" in capsys.readouterr().err
+    expected = {"--gen_selffeed_scenes": "requires --gen_selffeed_model",
+                "--n_selffeed_scenes": "requires --selffeed_model"}.get(argv[0], "not yet ported")
+    assert expected in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("model,flags", [("attention_unet", []), ("attention_unet_wide", []),
+                                         ("resnet", ["--model resnet"])])
+def test_train_accepts_every_model_the_registry_builds(model, flags):
+    args = SimpleNamespace(fused_epochs=0, data_parallel=False, multihost=False,
+                           tensorboard=False, dtype="float32", model=model)
+    assert train_cli._not_ported(args) == flags

@@ -42,6 +42,22 @@ def T(a):
     return torch.from_numpy(np.array(a))
 
 
+def use_jax_forcing(monkeypatch):
+    """Make the port's generators evaluate the forcing on JAX's ``linspace``
+    grid, which is 1 ulp off at some points (``tests/test_torch_ops.py`` holds
+    the forcing itself), so that generated fields differ by the solves alone."""
+    import jax.numpy as jnp
+
+    from superresolution_for_pdes_tpu.data import generate as jgen
+    from superresolution_for_pdes_tpu_torch.data import generate
+
+    def forcing(k1, k2, n, dtype, device):
+        f = jgen._batched_forcing(jnp.asarray(np_(k1)), jnp.asarray(np_(k2)), n, jnp.float32)
+        return torch.from_numpy(np.array(f)).to(device)
+
+    monkeypatch.setattr(generate, "forcing_term", forcing)
+
+
 def tiny_flax_variables(rng):
     """Seeded 5-channel TINY Flax variables (numpy), non-trivial BatchNorm."""
     import jax
