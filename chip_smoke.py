@@ -40,7 +40,8 @@ Phases (any failed check raises, and the script exits non-zero):
    (32, 160, 160), beside the same loss composed without the fusion (the
    operator kernel between elementwise launches, forward and backward);
 9. generate -- the ``generate_data`` CLI at the published counts (1000
-   standard + 1000 subdomain, theta mixed, 64 cascade scenes): the ``.npz``
+   standard + 1000 subdomain, theta mixed, 64 cascade scenes; the sample
+   figure at its default of 20, skipped without matplotlib): the ``.npz``
    keys, shapes and finiteness, and standard samples against a float64 DST
    solve of their own f and theta;
 10. train -- the ``train`` CLI with the champion's first-stage recipe
@@ -87,7 +88,23 @@ Phases (any failed check raises, and the script exits non-zero):
    serve levels 2 and 3-4 of one cascade to 640^2;
 15. single-level and diagnose -- ``compare_methods`` on phase 12's R7 run dir
    with 1000 fresh samples, and ``diagnose`` on phase 13's
-   ``statistical_results.json``: walls and artifacts.
+   ``statistical_results.json``: walls and artifacts;
+16. resnet -- ``train --model resnet`` with the round-1 ResNet recipe
+   (``reports/ROUND1.md:14-18``: 4,000 mixed-theta samples, physics weight
+   0.1; the flags are read off the report's table) cut to 2 epochs: the
+   launch identities (the fused loss forward per step and validation chunk,
+   its backward per step, no other kernel), both checkpoints load through
+   ``resolve_model`` as a 594,753-parameter ``PDEResNet``, one step with the
+   kernels against the twins, a warm step (batch 32 at 40^2) with its
+   profile, the peak memory, and one scene served to 640^2;
+17. router harnesses -- four full-width U-Net experts (one per sample with 5
+   channels) and a reference ``.pth``: ``compare_test_cases`` with the flags of
+   ``reports/RECIPES.md:100-104`` and ``out_of_sample`` at its defaults with
+   the router, with phase 16's ResNet and with the ``.pth``: artifacts,
+   figures written or named as skipped, the wavenumbers on the card against
+   float64 on the CPU, equal masks, every arm used, routed predictions
+   against each expert's own; ``run_single_example`` on phase 12's R7 run
+   to 640^2; walls.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true, "device":
@@ -243,7 +260,7 @@ def phase_generate(dev: torch.device, smi: str, n_each: int = 1000, n_scenes: in
         t0 = time.perf_counter()
         path = generate_data.main(["--n_standard", str(n_each), "--n_subdomain", str(n_each),
                                    "--theta", "mixed", "--n_cascade_scenes", str(n_scenes),
-                                   "--plot_samples", "0", "--out", tmp,
+                                   "--out", tmp,
                                    "--device", dev.type])
         cli_s = time.perf_counter() - t0
         with np.load(path) as z:
@@ -290,10 +307,8 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
     2 epochs; K1's launches counted over the run; checkpoints reloaded; one
     step with K1 against one with its twin; step time and profile."""
     from superresolution_for_pdes_tpu_torch.cli import train as train_cli
-    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
     from superresolution_for_pdes_tpu_torch.models import AttentionUNet, count_parameters
     from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
-    from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
     from superresolution_for_pdes_tpu_torch.train.checkpoint import load_model_state
 
     # scripts/rebuild_champion.sh:87-90, stage flagship_r7; the one cut: 2 epochs, not 1000
@@ -333,25 +348,53 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
     log(f"[train] losses train {hist['train_loss']} val {hist['val_loss']}; "
         f"{n_params} parameters; best_model and final_model reload and run")
 
-    # one step's loss and gradients with K1 and with its twin, same weights and batch
+    batch = step_batch(dev, stats, per_sample=True, scale_channels=True)
+    kernel_vs_twin_step(model, batch, stats, 0.3, "train")
+    warm = warm_step(model, batch, stats, 0.3, "train", smi)
+    log(f"[train] (before the loss was fused: {UNFUSED_LAUNCHES_PER_STEP} device launches "
+        f"per step)")
+    check(warm["launches_per_step"] <= 445, f"{warm['launches_per_step']} device launches per step")
+    log(f"[train] epochs: regeneration {hist['regen_seconds']} s, epoch wall "
+        f"{hist['epoch_seconds']} s; CLI run {run_s:.1f} s, on {smi}")
+    return {"launches": counts,
+            "summary": {"steps": steps, "eval_chunks": chunks, **warm,
+                        "regen_s": hist["regen_seconds"], "epoch_s": hist["epoch_seconds"],
+                        "run_s": run_s}}
+
+
+def step_batch(dev: torch.device, stats, per_sample: bool, scale_channels: bool) -> dict:
+    """32 training samples of all four strata (theta constant and varying,
+    standard and subdomain), normalized as the run normalizes them."""
+    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
+    from superresolution_for_pdes_tpu_torch.train import loop
+
     ds = generate_mixed_dataset(7, 16, 16, theta="mixed", device=dev)
-    arrays = loop.prepare_arrays(ds, stats, per_sample=True, scale_channels=True)
-    idx = torch.arange(0, 64, 2, device=dev)  # 32 samples of all four strata
-    batch = {k: v[idx] for k, v in arrays.items()}
+    arrays = loop.prepare_arrays(ds, stats, per_sample=per_sample, scale_channels=scale_channels)
+    idx = torch.arange(0, 64, 2, device=dev)
+    return {k: v[idx] for k, v in arrays.items()}
+
+
+def kernel_vs_twin_step(model, batch: dict, stats, physics_weight: float, tag: str) -> dict:
+    """One step's loss and gradients with the fused K1 loss and with its
+    twins, from the same weights (restored after): loss within 1e-6
+    relative, every gradient within 1e-5 of its max."""
+    from superresolution_for_pdes_tpu_torch.train import loop
+
     state0 = {k: v.clone() for k, v in model.state_dict().items()}
     torch.backends.cudnn.deterministic = True
     step = {}
     for use_kernel in (True, False):
         model.load_state_dict(state0)
         model.train().zero_grad(set_to_none=True)
-        loss = loop.batch_loss(model, batch, stats, 0.3, use_kernel)
+        loss = loop.batch_loss(model, batch, stats, physics_weight, use_kernel)
         loss.backward()
-        step[use_kernel] = (float(loss.detach()), {n: p.grad.clone() for n, p in model.named_parameters()})
+        step[use_kernel] = (float(loss.detach()),
+                            {n: p.grad.clone() for n, p in model.named_parameters()})
     torch.backends.cudnn.deterministic = False
     model.load_state_dict(state0)
     (loss_k, grads_k), (loss_p, grads_p) = step[True], step[False]
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-    check(loss_rel <= 1e-6, f"loss with the kernels {loss_k} vs twins {loss_p}")
+    check(loss_rel <= 1e-6, f"{tag}: loss with the kernels {loss_k} vs twins {loss_p}")
     top = max(float(g.abs().max()) for g in grads_p.values())
     grad_rel = 0.0
     for name, ref in grads_p.items():
@@ -360,44 +403,45 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
             continue
         rel = float((grads_k[name] - ref).abs().max()) / scale
         grad_rel = max(grad_rel, rel)
-        check(rel <= 1e-5, f"gradient {name}: kernel path vs twin path {rel:.2e}")
-    log(f"[train] one step, fused K1 loss vs twins: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}), "
-        f"worst gradient tensor {grad_rel:.2e} of its max (tol 1e-6 / 1e-5)")
+        check(rel <= 1e-5, f"{tag}: gradient {name}: kernel path vs twin path {rel:.2e}")
+    log(f"[{tag}] one step, fused K1 loss vs twins: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+        f"{loss_rel:.2e}), worst gradient tensor {grad_rel:.2e} of its max (tol 1e-6 / 1e-5)")
+    return {"loss_rel": loss_rel, "grad_rel": grad_rel}
 
-    # a warm step's time and where it goes
+
+def warm_step(model, batch: dict, stats, physics_weight: float, tag: str, smi: str) -> dict:
+    """A warm train step at the batch's shape: ms (CUDA events over 50
+    steps), samples/s, one fused loss forward and backward per step, and a
+    profile: device busy, kernel classes, device launches per step."""
+    from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+    from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
+
     opt = loop.make_optimizer(model, TrainConfig())
+    n, size = batch["x"].shape[0], batch["x"].shape[-1]
 
     def train_step():
-        return loop.train_step(model, opt, batch, stats, 0.3, 1.0)
+        return loop.train_step(model, opt, batch, stats, physics_weight, 1.0)
 
     sk.reset_launch_counts()
     step_ms = time_ms(train_step, reps=50)
     step_counts = sk.launch_counts()
     check(step_counts["kernel_pde_loss_forward"] == 55 and step_counts["kernel_pde_loss_backward"]
           == 55 and step_counts["kernel_apply_operator"] == 0,
-          f"one fused loss forward and backward per step: {step_counts} over 55 steps")
+          f"{tag}: one fused loss forward and backward per step: {step_counts} over 55 steps")
     wall, busy, rows = profile(train_step, reps=10)
     classes = by_class(rows)
-    log(f"[train] warm step, batch 32 at 40^2: {step_ms:.3f} ms (CUDA events), "
-        f"{32e3 / step_ms:.0f} samples/s; device busy {busy:.3f} ms per step = "
-        f"{100 * busy / step_ms:.0f}% of the step ({100 * busy / wall:.0f}% of the "
-        f"{wall:.3f} ms per step under the profiler), on {smi}")
-    for cls, ms in classes.items():
-        log(f"[train]   {ms:8.4f} ms per step  {cls}")
-    for name, ms, calls in rows[:8]:
-        log(f"[train]   {ms:8.4f} ms  {calls:5.0f} launches per step  {name[:80]}")
     launches = sum(r[2] for r in rows)
-    log(f"[train] {launches:.0f} device kernel launches per step (before the loss was "
-        f"fused: {UNFUSED_LAUNCHES_PER_STEP})")
-    check(launches <= 445, f"{launches} device launches per step")
-    log(f"[train] epochs: regeneration {hist['regen_seconds']} s, epoch wall "
-        f"{hist['epoch_seconds']} s; CLI run {run_s:.1f} s, on {smi}")
-    return {"launches": counts,
-            "summary": {"steps": steps, "eval_chunks": chunks, "step_ms": step_ms,
-                        "samples_per_s": 32e3 / step_ms, "device_busy_ms": busy,
-                        "busy_share": busy / step_ms, "launches_per_step": launches,
-                        "classes_ms": classes, "regen_s": hist["regen_seconds"],
-                        "epoch_s": hist["epoch_seconds"], "run_s": run_s}}
+    log(f"[{tag}] warm step, batch {n} at {size}^2: {step_ms:.3f} ms (CUDA events), "
+        f"{n * 1e3 / step_ms:.0f} samples/s; device busy {busy:.3f} ms per step = "
+        f"{100 * busy / step_ms:.0f}% of the step ({100 * busy / wall:.0f}% of the "
+        f"{wall:.3f} ms per step under the profiler); {launches:.0f} device kernel launches "
+        f"per step; on {smi}")
+    for cls, ms in classes.items():
+        log(f"[{tag}]   {ms:8.4f} ms per step  {cls}")
+    for name, ms, calls in rows[:8]:
+        log(f"[{tag}]   {ms:8.4f} ms  {calls:5.0f} launches per step  {name[:80]}")
+    return {"step_ms": step_ms, "samples_per_s": n * 1e3 / step_ms, "device_busy_ms": busy,
+            "busy_share": busy / step_ms, "launches_per_step": launches, "classes_ms": classes}
 
 
 def run_command(argv: list):
@@ -415,13 +459,13 @@ def run_command(argv: list):
         sys.argv = saved
 
 
-def random_expert(seed: int) -> dict:
-    """A full-width 5-channel BatchNorm AttentionUNet's state_dict from a seed,
-    with non-trivial running statistics."""
+def random_expert(seed: int, in_channels: int = 5) -> dict:
+    """A full-width BatchNorm AttentionUNet's state_dict from a seed, with
+    non-trivial running statistics."""
     from superresolution_for_pdes_tpu_torch.models import AttentionUNet
 
     g = torch.Generator().manual_seed(seed)
-    model = AttentionUNet(in_channels=5, generator=g)
+    model = AttentionUNet(in_channels=in_channels, generator=g)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.BatchNorm2d):
@@ -931,6 +975,235 @@ def phase_single_level(smi: str, root, r7_run: str, stat_dir) -> dict:
     return {"compare_s": compare_s, "diagnose_s": diagnose_s, "summary": s}
 
 
+# The round-1 ResNet run of reports/ROUND1.md:14-18 (enhanced_run_resnet: 4,000
+# mixed-theta samples, physics weight 0.1, the 0.6M-parameter ResNet). The report
+# records no flags: these are read off its table (1,000 standard + 1,000 subdomain
+# samples per theta stratum, which --gen_theta mixed doubles to 4,000; batch 32 and
+# the rest at train's defaults). The one cut: 2 epochs.
+RESNET = ["--model", "resnet", "--generate", "--gen_standard", "1000", "--gen_subdomain",
+          "1000", "--gen_theta", "mixed", "--physics_weight", "0.1", "--batch_size", "32",
+          "--epochs", "2"]
+
+
+def phase_resnet(dev: torch.device, smi: str, root) -> dict:
+    """Phase 16: ``train --model resnet`` in this process with the round-1
+    ResNet recipe cut to 2 epochs: launches (the fused loss forward per step
+    and validation chunk, its backward per step, no other kernel), finite
+    losses, both checkpoints load through ``resolve_model`` as a 594,753
+    parameter ``PDEResNet``; one step with the kernels against the twins; a
+    warm step's time and profile; peak memory; the checkpoint serves one
+    scene to 640^2 through ``ml_cascade``."""
+    from superresolution_for_pdes_tpu_torch.cascade.multires import solve_multi_resolution
+    from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
+    from superresolution_for_pdes_tpu_torch.cli import resolve_model
+    from superresolution_for_pdes_tpu_torch.models import PDEResNet, count_parameters
+    from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.reset_launch_counts()
+    t0 = time.perf_counter()
+    hist = run_command(["train", *RESNET, "--results", str(root / "resnet"),
+                        "--prefix", "resnet_"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    counts = sk.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps, chunks = sum(hist["train_steps"]), sum(hist["eval_chunks"])
+    expected = {"kernel_apply_operator": 0, "kernel_pde_loss_forward": steps + chunks,
+                "kernel_pde_loss_backward": steps, "kernel_residual": 0,
+                "kernel_jacobi_smooth": 0, "kernel_smooth_residual": 0}
+    log(f"[resnet] train {' '.join(RESNET)}: {steps} train steps {hist['train_steps']}, "
+        f"{chunks} validation chunks; launches {counts}")
+    check(counts == expected, f"resnet launches {counts} != {expected}")
+    losses = hist["train_loss"] + hist["val_loss"]
+    check(all(math.isfinite(v) for v in losses), f"resnet: non-finite losses {losses}")
+    x = torch.randn(4, 3, 40, 40, device=dev, generator=torch.Generator(dev).manual_seed(2))
+    for which in ("best_model", "final_model"):
+        model, weights, _ = resolve_model(str(hist["run_dir"] / which), device=dev)
+        n_params = count_parameters(model)
+        check(isinstance(model, PDEResNet) and n_params == 594_753,
+              f"{which}: {type(model).__name__} of {n_params} parameters")
+        model.load_state_dict(weights)
+        with torch.no_grad():
+            y = model(x)
+        check(y.shape == (4, 1, 40, 40) and bool(torch.isfinite(y).all()),
+              f"{which}: forward of the reloaded ResNet")
+    log(f"[resnet] losses train {hist['train_loss']} val {hist['val_loss']}; best_model and "
+        f"final_model load through resolve_model as a PDEResNet of {n_params} parameters; "
+        f"peak device memory {peak:.2f} GiB; epochs {hist['epoch_seconds']} s; command "
+        f"{run_s:.1f} s; on {smi}")
+
+    model, stats = hist["model"], hist["stats"]
+    batch = step_batch(dev, stats, per_sample=False, scale_channels=False)
+    parity = kernel_vs_twin_step(model, batch, stats, 0.1, "resnet")
+    warm = warm_step(model, batch, stats, 0.1, "resnet", smi)
+
+    served, weights, _ = resolve_model(str(hist["run_dir"]), device=dev)
+    full = solve_multi_resolution(9, resolutions=(80, 160, 320, 640), k_range=(10.0, 11.0),
+                                  device=dev)
+    scene = {"u": {40: full["u"][40]}, "f": full["f"], "theta": full["theta"]}
+    serve_ms = wall_ms(lambda: ml_cascade(served, weights, scene, 640, stats_mode="tile"))
+    fields = ml_cascade(served, weights, scene, 640, stats_mode="tile")
+    for r in (80, 160, 320, 640):
+        check(fields[r].shape == (r, r) and bool(torch.isfinite(fields[r]).all()),
+              f"resnet served {r}: {tuple(fields[r].shape)}")
+    log(f"[resnet] the checkpoint serves one scene to 640^2 through ml_cascade (tile stats): "
+        f"finite at 80-640, {serve_ms:.1f} ms warm; on {smi}")
+    return {"launches": counts, "run_dir": str(hist["run_dir"]),
+            "summary": {"steps": steps, "eval_chunks": chunks, "run_s": run_s,
+                        "epoch_s": hist["epoch_seconds"], "peak_gib": peak, "losses": losses,
+                        "serve_ms": serve_ms, **parity, **warm}}
+
+
+def phase_router(dev: torch.device, smi: str, root, r7_run: str, resnet_run: str) -> dict:
+    """Phase 17: the regime router's harnesses. Four full-width BatchNorm
+    U-Net experts as run dirs (the varying one per sample with 5 channels)
+    and a reference ``.pth``; ``compare_test_cases`` with the flags of
+    ``reports/RECIPES.md:100-104`` (4 arms, thresholds 6.0 and 6.5, 10
+    samples per set); ``out_of_sample`` at its defaults with the router, with
+    phase 16's ResNet run and with the ``.pth``: artifacts, figures written
+    or named as skipped; the wavenumbers on the card against float64 on the
+    CPU, the masks, every arm used, routed predictions against each
+    expert's own; ``run_single_example`` on phase 12's R7 run to 640^2."""
+    import contextlib
+    import io
+
+    from superresolution_for_pdes_tpu_torch.cli import resolve_expert, resolve_model
+    from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
+    from superresolution_for_pdes_tpu_torch.eval.single_level import predict_dataset
+    from superresolution_for_pdes_tpu_torch.eval.statistical import run_single_example
+    from superresolution_for_pdes_tpu_torch.eval.test_cases import GRID, grid_datasets
+    from superresolution_for_pdes_tpu_torch.models.router import RegimeRouter, estimate_wavenumbers
+    from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+    from superresolution_for_pdes_tpu_torch.train.checkpoint import save_checkpoint
+
+    runs = {}
+    for i, name in enumerate(("const", "varying", "consthi", "varyinghi")):
+        cfg = {"model": "attention_unet"}
+        if name == "varying":
+            cfg.update(normalization="per_sample", scale_channels=True)
+        run = root / f"{name}_run_0"
+        save_checkpoint(run / "best_model",
+                        {"model": random_expert(300 + i, 5 if name == "varying" else 3)})
+        (run / "config.json").write_text(json.dumps(cfg))
+        runs[name] = str(run)
+    pth = root / "reference" / "reference_unet.pth"
+    pth.parent.mkdir()
+    torch.save({"model_state_dict": random_expert(310, 3)}, pth)
+    router_flags = ["--expert_const", runs["const"], "--expert_const_highk", runs["consthi"],
+                    "--k_threshold", "6.0", "--expert_varying", runs["varying"],
+                    "--expert_varying_highk", runs["varyinghi"], "--k_threshold_varying", "6.5"]
+
+    def command(argv, out, json_names, figures):
+        """The command with its launches, wall and printed lines; each JSON
+        artifact written, each figure written or named as skipped."""
+        buf = io.StringIO()
+        sk.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            result = run_command([*argv, "--out", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = sk.launch_counts()
+        text = buf.getvalue()
+        log(text.rstrip())
+        check(sum(counts.values()) == 0, f"{argv[0]} launched stencil kernels: {counts}")
+        for name in json_names:
+            check((out / name).is_file(), f"{argv[0]}: {name} was not written")
+        skipped = [line for line in text.splitlines() if "figures skipped" in line]
+        for name in figures:
+            check((out / name).is_file() or any(name in line for line in skipped),
+                  f"{argv[0]}: figure {name} neither written nor named as skipped")
+        return result, wall, counts
+
+    labels = [label for label, _, _ in GRID]
+    grid, grid_s, grid_counts = command(
+        ["compare_test_cases", *router_flags, "--n_samples", "10"], root / "test_cases",
+        ["comprehensive_test_results.json"] + [f"{label}_metrics.json" for label in labels],
+        [f"comparison_{m}{s}.png" for m in ("mae", "rmse") for s in ("", "_log")]
+        + [f"{label}_sample_{i}.png" for label in labels for i in (1, 2)])
+    check(list(grid) == labels, f"compare_test_cases sets {list(grid)}")
+    oos = {}
+    for label, argv in (("router", router_flags), ("resnet", ["--model_path", resnet_run]),
+                        (".pth", ["--model_path", str(pth)])):
+        result, wall, counts = command(
+            ["out_of_sample", *argv], root / f"out_of_sample_{label.strip('.')}",
+            ["average_metrics.json", "out_of_sample_metrics.json"],
+            [f"{kind}_{i}.png" for kind in ("error_distribution", "cross_section",
+                                            "out_of_sample_sample") for i in (1, 2, 3)])
+        s = result["summary"]
+        check(result["n_samples"] == 5 and all(math.isfinite(v) for ms in s.values()
+                                                for v in ms.values()),
+              f"out_of_sample {label}: {s}")
+        oos[label] = {"wall_s": wall, "ml_mae": s["ml"]["mae"], "bilinear_mae": s["bilinear"]["mae"],
+                      "launches": counts}
+    for label, r in grid.items():
+        s = r["summary"]
+        check(all(math.isfinite(v) for ms in s.values() for v in ms.values()),
+              f"compare_test_cases {label}: {s}")
+
+    # the grid's sets again (compare_test_cases draws them from --seed 0): the
+    # estimator on the card against float64 on the CPU, the masks, the arms,
+    # and each routed sample against its expert's own prediction
+    sets = grid_datasets(0, 10, device=dev)
+    router = RegimeRouter(*(resolve_expert(runs[n], device=dev) for n in ("const", "varying")),
+                          const_high=resolve_expert(runs["consthi"], device=dev),
+                          varying_high=resolve_expert(runs["varyinghi"], device=dev),
+                          k_threshold=6.0, k_threshold_varying=6.5)
+    experts = (router.const, router.varying, router.const_high, router.varying_high)
+    k_err, routed_err, per_arm = 0.0, 0.0, [0, 0, 0, 0]
+    for label, data in sets.items():
+        check(data["k1"].tolist() == grid[label]["k1"], f"{label}: another draw than the command's")
+        f, theta = data["f_fine"], data["theta_fine"]
+        for card_k, cpu_k in zip(estimate_wavenumbers(f), estimate_wavenumbers(f.cpu().double())):
+            k_err = max(k_err, float((card_k.cpu() - cpu_k).abs().max()))
+        masks = {where: (router.regime_mask(th), router.highk_mask(ff), router.highk_mask(ff, 6.5))
+                 for where, th, ff in (("card", theta, f),
+                                       ("cpu", theta.cpu().double(), f.cpu().double()))}
+        for a, b in zip(masks["card"], masks["cpu"]):
+            check(a.cpu().tolist() == b.tolist(), f"{label}: masks on the card and the CPU differ")
+        const, hi, hi_v = masks["card"]
+        arm = torch.where(const, torch.where(hi, 2, 0), torch.where(hi_v, 3, 1))
+        stats = NormStats.from_dataset(data)
+        routed = router.predict(data, stats)
+        for a, (model, weights, normalization) in enumerate(experts):
+            sel = arm == a
+            per_arm[a] += int(sel.sum())
+            if sel.any():
+                own = predict_dataset(model, weights, data, stats, normalization=normalization)
+                err = float((routed[sel] - own[sel]).abs().max() / own[sel].abs().max())
+                routed_err = max(routed_err, err)
+    check(k_err <= 1e-4, f"wavenumbers on the card vs float64 on the CPU: {k_err:.2e}")
+    check(all(n >= 1 for n in per_arm), f"samples per arm {per_arm}")
+    check(routed_err <= 1e-6, f"routed vs each expert's own prediction: {routed_err:.2e}")
+
+    model, weights, _ = resolve_model(r7_run, device=dev)
+    t0 = time.perf_counter()
+    single = run_single_example(model, weights, 0, (80, 160, 320, 640), (10.0, 11.0), "tile",
+                                device=dev)
+    single_s = time.perf_counter() - t0
+    for r in (80, 160, 320, 640):
+        check(all(math.isfinite(v) for m in ("ml", "bilinear") for v in single[r][m].values()),
+              f"run_single_example {r}: {single[r]}")
+    log(f"[router] compare_test_cases (4 arms, thresholds 6.0 / 6.5, 5 sets of 10) "
+        f"{grid_s:.2f} s; out_of_sample (5 samples) router {oos['router']['wall_s']:.2f} s, "
+        f"resnet {oos['resnet']['wall_s']:.2f} s, .pth {oos['.pth']['wall_s']:.2f} s; samples "
+        f"per arm (const, varying, const high-k, varying high-k) {per_arm}; wavenumbers on the "
+        f"card within {k_err:.2e} of float64 on the CPU (limit 1e-4), masks equal; routed "
+        f"predictions within {routed_err:.2e} of each expert's own (limit 1e-6); "
+        f"run_single_example on R7 to 640^2 {single_s:.2f} s (ML ms by resolution "
+        f"{ {r: round(1e3 * single[r]['ml_time'], 3) for r in (80, 160, 320, 640)} }); "
+        f"on {smi}")
+    return {"launches": {"compare_test_cases": grid_counts,
+                         **{f"out_of_sample {k}": v["launches"] for k, v in oos.items()}},
+            "summary": {"compare_test_cases_s": grid_s, "out_of_sample": oos,
+                        "per_arm": per_arm, "k_err": k_err, "routed_err": routed_err,
+                        "single_example_s": single_s,
+                        "single_example_ml_ms": {r: 1e3 * single[r]["ml_time"]
+                                                 for r in (80, 160, 320, 640)}}}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -1360,6 +1633,10 @@ def main() -> None:
         single = phase_single_level(smi, Path(tmp), frozen["runs"]["r7"],
                                     evaluated["statistical_dir"])
         lap("15 single-level and diagnose")
+        resnet = phase_resnet(dev, smi, Path(tmp))
+        lap("16 resnet")
+        routed = phase_router(dev, smi, Path(tmp), frozen["runs"]["r7"], resnet["run_dir"])
+        lap("17 router harnesses")
 
     t40 = loss_timing[(32, 40, 40)]
     timing = {"K1": dict(solved["k1_timing"],
@@ -1397,6 +1674,8 @@ def main() -> None:
         "resolution_comparison --refine_cycles 2 (phase 13)": evaluated["sweep_launches"],
         "train SFL2F, 2 epochs at (32, 160^2) (phase 14)": rebuilt["launches"]["SFL2F"],
         "train SFL34G, 2 epochs at (32, 160^2) (phase 14)": rebuilt["launches"]["SFL34G"],
+        "train --model resnet, 2 epochs (phase 16)": resnet["launches"],
+        **{f"{cmd} (phase 17)": c for cmd, c in routed["launches"].items()},
     }
     rows = []
     for key in keys:
@@ -1422,6 +1701,7 @@ def main() -> None:
     log(f"[summary] solvers {solved['cases']}; freeze {frozen['summary']}; evaluate "
         f"{evaluated['summary']}")
     log(f"[summary] rebuild {rebuilt['stages']}; single-level {single}")
+    log(f"[summary] resnet {resnet['summary']}; router harnesses {routed['summary']}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

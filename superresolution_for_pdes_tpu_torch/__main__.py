@@ -1,7 +1,6 @@
 """Subcommand dispatcher: ``python -m superresolution_for_pdes_tpu_torch <cmd> ...``.
 
-Seven of the JAX package's nine commands are ported; ``out_of_sample`` and
-``compare_test_cases`` are listed in ROADMAP.md.
+The JAX package's nine commands, all ported.
 """
 
 from __future__ import annotations
@@ -13,6 +12,8 @@ COMMANDS = {
     "generate_data": "superresolution_for_pdes_tpu_torch.cli.generate_data",
     "train": "superresolution_for_pdes_tpu_torch.cli.train",
     "compare_methods": "superresolution_for_pdes_tpu_torch.cli.compare_methods",
+    "out_of_sample": "superresolution_for_pdes_tpu_torch.cli.out_of_sample",
+    "compare_test_cases": "superresolution_for_pdes_tpu_torch.cli.compare_test_cases",
     "resolution_comparison": "superresolution_for_pdes_tpu_torch.cli.resolution_comparison",
     "statistical": "superresolution_for_pdes_tpu_torch.cli.statistical",
     "diagnose": "superresolution_for_pdes_tpu_torch.cli.diagnose",

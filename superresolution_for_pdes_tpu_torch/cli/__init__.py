@@ -2,12 +2,12 @@
 and the model resolution they share (port of ``cli/__init__.py``).
 
 A model path is a run directory of the port's ``train`` (``config.json``
-beside ``best_model/checkpoint.pt``), or a checkpoint directory itself
-(``checkpoint.pt`` in it); ``None`` means the newest run under ``results``.
-Not ported: reference ``.pth`` checkpoints and ``resolve_expert`` (the
-router's) raise "not yet ported" (ROADMAP.md); the JAX package's
-``enable_compilation_cache`` configures XLA's on-disk cache and has no
-counterpart here, since PyTorch compiles nothing ahead of a run.
+beside ``best_model/checkpoint.pt``), a checkpoint directory itself
+(``checkpoint.pt`` in it), or a reference ``.pth`` (its run's
+``config.json``, if any, beside it); ``None`` means the newest run under
+``results``. The JAX package's ``enable_compilation_cache`` configures XLA's
+on-disk cache and has no counterpart here, since PyTorch compiles nothing
+ahead of a run.
 """
 
 from __future__ import annotations
@@ -16,38 +16,48 @@ import json
 from pathlib import Path
 
 
+def _run_config(path: Path) -> dict:
+    """The ``config.json`` of the run that ``path`` names (a run dir, a
+    checkpoint dir in it, or a ``.pth`` beside it), or ``{}``."""
+    from superresolution_for_pdes_tpu_torch.train.checkpoint import FILENAME
+
+    run_dir = path.parent if path.suffix == ".pth" or (path / FILENAME).exists() else path
+    cfg_path = run_dir / "config.json"
+    return json.loads(cfg_path.read_text()) if cfg_path.exists() else {}
+
+
 def _load_model(path: Path, device):
-    """``(model, state_dict, train_stats)`` from one run or checkpoint dir."""
+    """``(model, state_dict, train_stats)`` from one run or checkpoint dir, or
+    a reference ``.pth`` (which holds no normalization statistics)."""
     from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
     from superresolution_for_pdes_tpu_torch.models import build_model
+    from superresolution_for_pdes_tpu_torch.models.torch_import import load_torch_checkpoint
     from superresolution_for_pdes_tpu_torch.train.checkpoint import FILENAME, restore_checkpoint
 
     if path.suffix == ".pth":
-        raise NotImplementedError(
-            f"{path}: reference .pth checkpoints are not yet ported to PyTorch (see "
-            "ROADMAP.md); pass a run directory of the port's train command")
-    ckpt_dir = path if (path / FILENAME).exists() else path / "best_model"
-    restored = restore_checkpoint(ckpt_dir, map_location=device)
-    ns = restored.get("norm_stats")
-    train_stats = None if ns is None else NormStats(**ns)
-    model_name, overrides = "attention_unet", {}
-    cfg_path = (ckpt_dir.parent if ckpt_dir == path else path) / "config.json"
-    if cfg_path.exists():
-        cfg = json.loads(cfg_path.read_text())
-        model_name = cfg.get("model", model_name)
-        if cfg.get("scale_channels"):
-            overrides["in_channels"] = 5
-        if cfg.get("model_norm", "batch") != "batch":
-            overrides["norm"] = cfg["model_norm"]
-    model = build_model(model_name, **overrides).to(device).eval()
-    return model, restored["model"], train_stats
+        state = {k: v.to(device) for k, v in load_torch_checkpoint(path).items()}
+        train_stats = None
+    else:
+        restored = restore_checkpoint(path if (path / FILENAME).exists() else path / "best_model",
+                                      map_location=device)
+        ns = restored.get("norm_stats")
+        state, train_stats = restored["model"], None if ns is None else NormStats(**ns)
+    cfg = _run_config(path)
+    overrides = {}
+    if cfg.get("scale_channels"):
+        overrides["in_channels"] = 5
+    if cfg.get("model_norm", "batch") != "batch":
+        overrides["norm"] = cfg["model_norm"]
+    model = build_model(cfg.get("model", "attention_unet"), **overrides).to(device).eval()
+    return model, state, train_stats
 
 
 def resolve_model(model_path: str | None, results_dir: str = "results", device=None):
-    """``(model, state_dict, train_stats)`` from a run or checkpoint directory,
-    or the newest run under ``results_dir`` when ``model_path`` is None, on
-    ``device`` (default ``cuda``; raises without a card). ``train_stats`` is
-    the checkpoint's normalization statistics, or None when it has none."""
+    """``(model, state_dict, train_stats)`` from a run or checkpoint directory
+    or a reference ``.pth``, or the newest run under ``results_dir`` when
+    ``model_path`` is None, on ``device`` (default ``cuda``; raises without a
+    card). ``train_stats`` is the checkpoint's normalization statistics, or
+    None when it has none."""
     from superresolution_for_pdes_tpu_torch.device import resolve_device
     from superresolution_for_pdes_tpu_torch.utils.runs import find_latest_run_dir
 
@@ -101,7 +111,50 @@ def resolve_level_experts(model_path, args, results_dir: str = "results", device
     return model, tuple(seq), train_stats
 
 
-def resolve_expert(model_path: str | None, results_dir: str = "results"):
-    """The router's expert loader: not yet ported."""
-    raise NotImplementedError("resolve_expert (the router's expert loader) is not yet "
-                              "ported to PyTorch (see ROADMAP.md)")
+def resolve_expert(model_path: str | None, results_dir: str = "results", device=None):
+    """``(model, state_dict, normalization)`` for one routed expert, as
+    :func:`resolve_model` loads it; the normalization mode (``"dataset"`` or
+    ``"per_sample"``) comes from the run's ``config.json`` (``"dataset"``
+    without one), so that inputs are built as the expert was trained."""
+    if model_path is None:
+        from superresolution_for_pdes_tpu_torch.utils.runs import find_latest_run_dir
+
+        model_path = find_latest_run_dir(results_dir)
+        print(f"using latest run: {model_path}")
+    model, state, _ = resolve_model(model_path, results_dir, device)
+    return model, state, _run_config(Path(model_path)).get("normalization", "dataset")
+
+
+def add_router_flags(parser) -> None:
+    """The routed-expert flags of ``out_of_sample`` and
+    ``compare_test_cases``."""
+    parser.add_argument("--expert_const", type=str, default=None,
+                        help="theta == 1 expert; with --expert_varying, evaluate the "
+                        "theta-regime-routed deployment instead of one checkpoint")
+    parser.add_argument("--expert_varying", type=str, default=None)
+    parser.add_argument("--expert_const_highk", type=str, default=None,
+                        help="optional expert for constant-theta high-wavenumber inputs, "
+                        "routed by the FFT peak of the known forcing")
+    parser.add_argument("--k_threshold", type=float, default=6.0)
+    parser.add_argument("--expert_varying_highk", type=str, default=None,
+                        help="optional expert for varying-theta high-wavenumber inputs")
+    parser.add_argument("--k_threshold_varying", type=float, default=6.0)
+
+
+def resolve_router(args, device):
+    """The :class:`~superresolution_for_pdes_tpu_torch.models.router.RegimeRouter`
+    the router flags name, or None without ``--expert_const``."""
+    if (args.expert_const is None) != (args.expert_varying is None):
+        raise SystemExit("--expert_const and --expert_varying must be given together")
+    if args.expert_const is None:
+        return None
+    from superresolution_for_pdes_tpu_torch.models.router import RegimeRouter
+
+    def expert(path):
+        return None if path is None else resolve_expert(path, device=device)
+
+    return RegimeRouter(expert(args.expert_const), expert(args.expert_varying),
+                        const_high=expert(args.expert_const_highk),
+                        varying_high=expert(args.expert_varying_highk),
+                        k_threshold=args.k_threshold,
+                        k_threshold_varying=args.k_threshold_varying)

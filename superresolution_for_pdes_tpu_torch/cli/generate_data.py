@@ -6,15 +6,18 @@
 Writes ``<out>/pde_dataset.npz`` in the JAX package's schema. With
 ``--n_selffeed_scenes N --selffeed_model RUN`` it appends self-fed cascade
 tiles from N scenes (to ``--cascade_finest``, scene stats) whose coarse
-inputs are that model's own cascade predictions. Not yet ported (it raises):
-``--plot_samples > 0``, which needs the eval plots; it therefore defaults to
-0 here.
+inputs are that model's own cascade predictions. ``--plot_samples N``
+(default 20; 0 draws none) draws N random samples (coarse u, fine u, theta,
+f) into ``<out>/dataset_samples/random_samples.png`` where matplotlib is
+installed.
 """
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
+
+import torch
 
 
 def main(argv=None) -> Path:
@@ -40,15 +43,12 @@ def main(argv=None) -> Path:
     parser.add_argument("--selffeed_model", type=str, default=None,
                         help="run dir whose cascade makes the self-fed coarse inputs")
     parser.add_argument("--selffeed_k", type=float, nargs=2, default=(0.5, 12.0))
-    parser.add_argument("--plot_samples", type=int, default=0,
-                        help="not yet ported: must be 0")
+    parser.add_argument("--plot_samples", type=int, default=20,
+                        help="plot this many random samples as a visual check; 0 disables")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     if args.n_selffeed_scenes > 0 and args.selffeed_model is None:
         parser.error("--n_selffeed_scenes requires --selffeed_model")
-    if args.plot_samples > 0:
-        parser.error("--plot_samples: the sample plots are not yet ported to PyTorch "
-                     "(see ROADMAP.md)")
 
     from superresolution_for_pdes_tpu_torch.cli import resolve_model
     from superresolution_for_pdes_tpu_torch.data.generate import (
@@ -93,6 +93,19 @@ def main(argv=None) -> Path:
         dataset = combine_datasets(dataset, selffeed)
     path = save_dataset(dataset, args.out)
     print(f"saved {int(dataset['u_fine'].shape[0])} samples -> {path}")
+    if args.plot_samples > 0:
+        from superresolution_for_pdes_tpu_torch.eval import plots
+
+        out_dir = Path(path).parent / "dataset_samples"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        indices = plots.sample_indices(int(dataset["u_fine"].shape[0]), args.plot_samples,
+                                       args.seed)
+        idx = torch.as_tensor(indices, device=device)
+        samples = {k: dataset[k][idx].cpu().numpy()
+                   for k in ("u_coarse", "u_fine", "theta_fine", "f_fine", "is_subdomain")}
+        for figure in plots.draw_figures([(out_dir / "random_samples.png", plots.dataset_samples,
+                                           dict(samples=samples, indices=indices))]):
+            print(f"sample plots -> {figure}")
     return path
 
 

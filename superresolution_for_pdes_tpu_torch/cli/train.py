@@ -12,11 +12,12 @@ mixes in (or, with every other count at 0, trains on) self-fed cascade tiles
 whose coarse inputs are a frozen teacher cascade's predictions
 (``--gen_selffeed_model`` and its per-level experts). Writes
 ``<results>/<prefix>run_<timestamp>/`` with ``config.json``,
-``metrics.jsonl``, ``best_model/`` and ``final_model/``.
+``metrics.jsonl``, ``best_model/`` and ``final_model/``. ``--model`` is any
+name of the registry (``attention_unet``, ``attention_unet_wide``,
+``resnet``).
 
 Not yet ported (they raise): ``--fused_epochs > 1``, ``--data_parallel``,
-``--multihost``, ``--tensorboard``, ``--dtype`` other than float32 and
-``--model resnet``.
+``--multihost``, ``--tensorboard`` and ``--dtype`` other than float32.
 """
 
 from __future__ import annotations
@@ -26,15 +27,11 @@ import types
 
 
 def _not_ported(args) -> list[str]:
-    from superresolution_for_pdes_tpu_torch.models.registry import NOT_PORTED
-
     flags = ["--fused_epochs > 1"] if args.fused_epochs > 1 else []
     flags += [f"--{name}" for name in ("data_parallel", "multihost", "tensorboard")
               if getattr(args, name)]
     if args.dtype != "float32":
         flags.append(f"--dtype {args.dtype}")
-    if args.model in NOT_PORTED:
-        flags.append(f"--model {args.model}")
     return flags
 
 
@@ -76,7 +73,7 @@ def _make_selffeed(args, device):
 
 
 def main(argv=None) -> dict:
-    parser = argparse.ArgumentParser(description="Train the attention U-Net")
+    parser = argparse.ArgumentParser(description="Train a model of the registry")
     parser.add_argument("--data", type=str, default="data/pde_dataset.npz")
     parser.add_argument("--generate", action="store_true",
                         help="generate the training set on the device (seeded by --gen_seed) "

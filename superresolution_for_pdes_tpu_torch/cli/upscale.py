@@ -14,7 +14,8 @@ from expert checkpoints, calibrate it and save it (port of
     python -m superresolution_for_pdes_tpu_torch upscale --bundle BUNDLE \\
         --k 10 11 --seed 0 --target 640 --out results/upscaled [--device cuda]
 
-Model paths are run directories of the port's ``train`` command. With
+Model paths are run directories of the port's ``train`` command or
+reference ``.pth`` checkpoints. With
 ``--amp_calibrate N`` the assembled cascade gets grid modal gains fit on N
 self-generated scenes (``cascade.modal.calibrate_modal``, seed
 ``--amp_seed``). The scene comes from ``--scene`` (an npz with ``u40`` and

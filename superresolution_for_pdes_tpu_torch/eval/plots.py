@@ -1,6 +1,5 @@
-"""The figures of the resolution sweep and the statistical benchmark (port of
-the parts of ``eval/plots.py`` those two harnesses draw): numpy and
-matplotlib with the Agg backend.
+"""The harnesses' figures (port of ``eval/plots.py``): numpy and matplotlib
+with the Agg backend. Each figure is a function ``fn(plt, **kw) -> fig``.
 
 Figures are drawn only where matplotlib imports; :func:`draw_figures` prints
 one line naming the figures it skipped otherwise. No number the harnesses
@@ -11,14 +10,15 @@ package draws a KDE where seaborn is installed).
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 
 
-def draw_figures(jobs: Sequence[Tuple[Path, Callable, Dict]]) -> None:
-    """Run each ``(path, plot function, keyword arguments)`` job, or print
-    which figures were skipped when matplotlib is not installed."""
+def draw_figures(jobs: Sequence[Tuple[Path, Callable, Dict]]) -> List[Path]:
+    """Run each ``(path, plot function, keyword arguments)`` job and return
+    the paths written, or print which figures were skipped and return ``[]``
+    when matplotlib is not installed."""
     try:
         import matplotlib
 
@@ -27,12 +27,13 @@ def draw_figures(jobs: Sequence[Tuple[Path, Callable, Dict]]) -> None:
     except ImportError:
         names = ", ".join(Path(path).name for path, _, _ in jobs)
         print(f"matplotlib is not installed: figures skipped: {names}")
-        return
+        return []
     for path, fn, kwargs in jobs:
         fig = fn(plt, **kwargs)
         fig.tight_layout()
         fig.savefig(path, dpi=150)
         plt.close(fig)
+    return [Path(path) for path, _, _ in jobs]
 
 
 def sample_comparison(plt, coarse, truth, ml, bilinear, theta, forcing, k1, k2):
@@ -138,4 +139,63 @@ def computation_times(plt, resolutions: Sequence[int], times: Dict[str, Sequence
         ax.plot(resolutions, np.asarray(values, dtype=float) * 1e3, "o-", label=name)
     ax.set_yscale("log")
     _log_resolution_axis(ax, resolutions, "Wall-clock time (ms)")
+    return fig
+
+
+def grouped_bars(plt, group_labels: Sequence[str], series: Dict[str, Sequence[float]],
+                 ylabel: str, log: bool = False):
+    """One group of bars per label, one bar per series."""
+    x = np.arange(len(group_labels))
+    width = 0.8 / max(len(series), 1)
+    fig, ax = plt.subplots(figsize=(max(8, 2 * len(group_labels)), 6))
+    for i, (name, values) in enumerate(series.items()):
+        ax.bar(x + (i - (len(series) - 1) / 2) * width, values, width, label=name)
+    ax.set_xticks(x, group_labels, rotation=20, ha="right")
+    ax.set_ylabel(ylabel)
+    if log:
+        ax.set_yscale("log")
+    ax.grid(True, axis="y", alpha=0.3)
+    ax.legend()
+    return fig
+
+
+def cross_section(plt, fields: Dict[str, np.ndarray], row: int, title: str):
+    """Row ``row`` of each field against x in [0, 1]."""
+    fig, ax = plt.subplots(figsize=(10, 6))
+    for label, field in fields.items():
+        ax.plot(np.linspace(0, 1, field.shape[-1]), field[row], label=label)
+    ax.set_xlabel("x")
+    ax.set_ylabel("u")
+    ax.set_title(title)
+    ax.grid(True, alpha=0.3)
+    ax.legend()
+    return fig
+
+
+def sample_indices(n_total: int, n_samples: int, seed: int) -> np.ndarray:
+    """The samples :func:`dataset_samples` shows: ``min(n_samples, n_total)``
+    distinct indices from ``np.random.default_rng(seed)``, as the JAX package
+    draws them."""
+    rng = np.random.default_rng(seed)
+    return rng.choice(n_total, size=min(n_samples, n_total), replace=False)
+
+
+def dataset_samples(plt, samples: Dict[str, np.ndarray], indices: Sequence[int]):
+    """One row per sample: coarse u, fine u, theta and f. ``samples`` holds
+    ``u_coarse``, ``u_fine``, ``theta_fine``, ``f_fine`` and ``is_subdomain``
+    of the samples ``indices`` of a dataset, in that order."""
+    n = len(indices)
+    fig, axes = plt.subplots(n, 4, figsize=(16, 3 * n), squeeze=False)
+    for i, idx in enumerate(indices):
+        sub = " (subdomain)" if samples["is_subdomain"][i] else ""
+        panels = [(f"Coarse u {idx}{sub}", samples["u_coarse"][i]),
+                  (f"Fine u {idx}", samples["u_fine"][i]),
+                  (f"Theta {idx}", samples["theta_fine"][i]),
+                  (f"Forcing {idx}", samples["f_fine"][i])]
+        for ax, (title, field) in zip(axes[i], panels):
+            im = ax.imshow(field)
+            ax.set_title(title)
+            ax.set_xticks([])
+            ax.set_yticks([])
+            fig.colorbar(im, ax=ax, fraction=0.046)
     return fig

@@ -49,6 +49,18 @@ def predict_dataset(model, variables, data: Dict, stats: Optional[NormStats] = N
     return stats.denormalize_u(pred[:, 0])
 
 
+def predict_ml(model, variables, data: Dict, stats: NormStats, normalization: str = "dataset",
+               symmetrize: bool = False) -> torch.Tensor:
+    """ML predictions as :func:`evaluate_dataset` scores them: a ``model``
+    with a ``predict(data, stats, symmetrize=...)`` method (an expert
+    ensemble) predicts for itself, any other goes through
+    :func:`predict_dataset`."""
+    if hasattr(model, "predict"):
+        return model.predict(data, stats, symmetrize=symmetrize)
+    return predict_dataset(model, variables, data, stats, normalization=normalization,
+                           symmetrize=symmetrize)
+
+
 def evaluate_dataset(model, variables, data: Dict, label: str = "test",
                      save_dir: Optional[Path] = None, stats: Optional[NormStats] = None,
                      n_plot: int = 3, space: str = "physical", normalization: str = "dataset",
@@ -64,11 +76,7 @@ def evaluate_dataset(model, variables, data: Dict, label: str = "test",
         stats = NormStats.from_dataset(data)
     target = data["u_fine"]
     fine_shape = tuple(int(s) for s in target.shape[-2:])
-    if hasattr(model, "predict"):
-        ml = model.predict(data, stats, symmetrize=symmetrize)
-    else:
-        ml = predict_dataset(model, variables, data, stats, normalization=normalization,
-                             symmetrize=symmetrize)
+    ml = predict_ml(model, variables, data, stats, normalization, symmetrize)
     bilinear = resize_align_corners(data["u_coarse"], fine_shape, "bilinear")
     bicubic = resize_align_corners(data["u_coarse"], fine_shape, "bicubic")
     if space == "normalized":

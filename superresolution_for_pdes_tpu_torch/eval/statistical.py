@@ -15,8 +15,10 @@ k1 + k2 and the timing figure are drawn where matplotlib is installed.
 
 Each wall time ends in a device synchronisation. Before the timed pass,
 :func:`~superresolution_for_pdes_tpu_torch.cascade.upscale.warmup_cascade_stepwise`
-runs every level once on the first scene. Not ported: ``run_single_example``
-(the batched harness replaces it).
+runs every level once on the first scene. :func:`run_single_example` runs
+one scene through the cascade and bilinear interpolation, one target
+resolution at a time (the reference's per-example loop; the batched harness
+is the fast path).
 """
 
 from __future__ import annotations
@@ -30,11 +32,15 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from superresolution_for_pdes_tpu_torch.cascade.multires import solve_multi_resolution_batch
+from superresolution_for_pdes_tpu_torch.cascade.multires import (
+    solve_multi_resolution,
+    solve_multi_resolution_batch,
+)
 from superresolution_for_pdes_tpu_torch.cascade.upscale import (
     interpolation_upscale,
     level_resolutions,
     ml_cascade_stepwise,
+    ml_multi_level_upscale,
     warmup_cascade_stepwise,
 )
 from superresolution_for_pdes_tpu_torch.eval.metrics import compute_metrics
@@ -56,6 +62,52 @@ def _timed(fn, device: torch.device) -> Tuple[object, float]:
     out = fn()
     sync()
     return out, time.perf_counter() - t0
+
+
+def single_example_on_scene(model, variables, scene: Dict, resolutions: Sequence[int],
+                            stats_mode: str, train_stats=None,
+                            solve_seconds: Optional[Dict[int, float]] = None) -> Dict:
+    """The deterministic step of :func:`run_single_example` on one scene
+    (``{k1, k2, u, f, theta}``, fields ``(r, r)`` at 40 and every level):
+    ``{k1, k2, solve_times, res: {ml, bilinear, ml_time, bilinear_time}}``
+    with each resolution's metrics and wall seconds (a warm call, then a
+    timed one, each ending in a device synchronisation)."""
+    device = scene["u"][40].device
+    record: Dict = {"k1": float(scene["k1"]), "k2": float(scene["k2"]),
+                    "solve_times": dict(solve_seconds or {})}
+    for res in resolutions:
+        ml, ml_time = _timed(lambda res=res: ml_multi_level_upscale(
+            model, variables, scene, res, stats_mode=stats_mode, train_stats=train_stats),
+            device)
+        bl, bl_time = _timed(lambda res=res: interpolation_upscale(scene["u"][40], res,
+                                                                   "bilinear"), device)
+        truth = scene["u"][res]
+        record[res] = {
+            "ml": {k: float(v) for k, v in compute_metrics(ml, truth).items()},
+            "bilinear": {k: float(v) for k, v in compute_metrics(bl, truth).items()},
+            "ml_time": ml_time,
+            "bilinear_time": bl_time,
+        }
+    return record
+
+
+def run_single_example(model, variables, seed_or_generator, resolutions: Sequence[int],
+                       k_range: Tuple[float, float], stats_mode: str, timings: bool = True,
+                       train_stats=None, device=None) -> Dict:
+    """One scene (k ~ U(``k_range``), theta ~ U(0.5, 2)) drawn from
+    ``seed_or_generator`` and solved at 40 and ``resolutions`` on ``device``
+    (default ``cuda``; raises without a card), through
+    :func:`single_example_on_scene`; with ``timings``, each resolution's
+    exact solve is timed too."""
+    scene = solve_multi_resolution(seed_or_generator, resolutions=tuple(resolutions),
+                                   k_range=k_range, device=device)
+    solve_seconds = {}
+    if timings:
+        for res, f in scene["f"].items():
+            solve_seconds[res] = _timed(
+                lambda f=f, res=res: solve_poisson_dst(f, scene["theta"][res], 1), f.device)[1]
+    return single_example_on_scene(model, variables, scene, resolutions, stats_mode,
+                                   train_stats, solve_seconds)
 
 
 def solve_times(scenes: Dict, refine_iters: int = 1) -> Dict[int, float]:

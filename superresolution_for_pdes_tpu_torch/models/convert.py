@@ -1,4 +1,5 @@
-"""Flax ``{params, batch_stats}`` -> port ``state_dict`` (the weight carrier).
+"""Flax ``{params, batch_stats}`` -> port ``state_dict`` (the weight carrier),
+for the attention U-Net and the residual CNN.
 
 The inverse of the JAX package's ``models/torch_import.py``: conv kernels go
 from HWIO to OIHW; BatchNorm ``scale``/``bias`` become ``weight``/``bias`` and
@@ -37,8 +38,9 @@ def _norm(out: Dict, name: str, p: Mapping, stats: Mapping | None) -> None:
 
 
 def variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """Convert Flax ``{params, batch_stats}`` of an ``AttentionUNet`` (batch or
-    group norm) into a state_dict for the port's ``AttentionUNet``."""
+    """Convert Flax ``{params, batch_stats}`` of an ``AttentionUNet`` or a
+    ``PDEResNet`` (a tree with a ``stem``; batch or group norm) into a
+    state_dict for the port's model of the same name."""
     params = variables["params"]
     stats = variables.get("batch_stats") or {}
 
@@ -51,6 +53,17 @@ def variables_to_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
         return node
 
     sd: Dict[str, torch.Tensor] = {}
+    if "stem" in params:
+        _conv(sd, "stem", params["stem"])
+        i = 1
+        while f"block{i}" in params:
+            for j in (1, 2):
+                name = f"block{i}"
+                _conv(sd, f"{name}.conv{j}", params[name][f"conv{j}"])
+                _norm(sd, f"{name}.bn{j}", params[name][f"bn{j}"], st(name, f"bn{j}"))
+            i += 1
+        _conv(sd, "head", params["head"])
+        return sd
     for block in _CONV_BLOCKS:
         for i in (1, 2):
             _conv(sd, f"{block}.conv{i}", params[block][f"conv{i}"])

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+from superresolution_for_pdes_tpu_torch.models.resnet import PDEResNet
 from superresolution_for_pdes_tpu_torch.models.unet import AttentionUNet
 
 
@@ -18,17 +19,16 @@ def _wide_unet(**kw):
 _REGISTRY: Dict[str, Callable[..., Any]] = {
     "attention_unet": AttentionUNet,
     "attention_unet_wide": _wide_unet,
+    "resnet": PDEResNet,
 }
 
-# names of the JAX package's registry that the port does not build yet
-NOT_PORTED = ("resnet",)
+
+def available_models() -> tuple[str, ...]:
+    return tuple(_REGISTRY)
 
 
 def build_model(name: str, **overrides):
     """Build a model on the CPU; move it with ``.to(device)``."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet (see ROADMAP.md, Queue 1)")
     try:
         builder = _REGISTRY[name]
     except KeyError:

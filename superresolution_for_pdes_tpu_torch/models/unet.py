@@ -69,6 +69,19 @@ def make_norm(kind: str, features: int) -> nn.Module:
     raise ValueError(f"unknown norm kind: {kind!r}")
 
 
+@torch.no_grad()
+def init_weights(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """Kaiming fan_out normal convs (std ``sqrt(2 / fan_out)``), zero biases,
+    norm scale 1 / shift 0, running stats (0, 1), for every submodule."""
+    for m in module.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+            m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
+            m.bias.zero_()
+        elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
+            m.reset_parameters()
+
+
 class ConvBlock(nn.Module):
     """Conv3x3 -> norm -> ReLU, twice."""
 
@@ -141,17 +154,9 @@ class AttentionUNet(nn.Module):
         self.final = nn.Conv2d(cin, 1, 1)
         self.reset_parameters(generator)
 
-    @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
-        """Kaiming fan_out normal convs (std ``sqrt(2 / fan_out)``), zero
-        biases, norm scale 1 / shift 0, running stats (0, 1)."""
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
-                m.weight.normal_(0.0, math.sqrt(2.0 / fan_out), generator=generator)
-                m.bias.zero_()
-            elif isinstance(m, (nn.BatchNorm2d, nn.GroupNorm)):
-                m.reset_parameters()
+        """:func:`init_weights` on every layer."""
+        init_weights(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         coarse = x[:, 0:1]

@@ -129,11 +129,11 @@ def test_cli_serves_bundle(tmp_path, bundles, scene):
 
 
 def test_cli_rejects_unported_routes(tmp_path):
-    """The model-assembly route is ported; reference ``.pth`` checkpoints are
-    not, and a model path that does not exist is an error."""
-    (tmp_path / "reference.pth").write_bytes(b"")
+    """The model-assembly route runs a reference ``.pth`` checkpoint too; a
+    model path that does not exist is an error."""
+    torch.save({"model_state_dict": AttentionUNet().state_dict()}, tmp_path / "reference.pth")
     common = ["--target", "80", "--device", "cpu", "--out", str(tmp_path / "out")]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        upscale_main(["--model_path", str(tmp_path / "reference.pth"), *common])
+    upscale_main(["--model_path", str(tmp_path / "reference.pth"), *common])
+    assert np.isfinite(np.load(tmp_path / "out" / "ml_80x80.npy")).all()
     with pytest.raises(FileNotFoundError):
         upscale_main(["--model_path", str(tmp_path / "missing"), *common])

@@ -120,9 +120,10 @@ def test_resolve_model_reads_the_ports_checkpoints(tmp_path, experts):
     with pytest.raises(SystemExit):
         resolve_level_experts(str(run), SimpleNamespace(model_path_level=[("0", str(run))]),
                               device="cpu")
-    (tmp_path / "ref.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        resolve_model(str(tmp_path / "ref.pth"), device="cpu")
+    torch.save({"model_state_dict": sds[0]}, run / "ref.pth")  # beside the run's config
+    model, pth_weights, pth_stats = resolve_model(str(run / "ref.pth"), device="cpu")
+    assert pth_stats is None and model.in_channels == 5
+    assert all(torch.equal(pth_weights[k], v) for k, v in sds[0].items())
     with pytest.raises(FileNotFoundError):
         resolve_model(str(tmp_path / "missing"), device="cpu")
 

@@ -43,15 +43,23 @@ def test_entry_points_raise_without_a_card(tmp_path):
     from superresolution_for_pdes_tpu_torch.cascade.upscale import calibrate_amplitude
     from superresolution_for_pdes_tpu_torch.cli import (
         compare_methods,
+        compare_test_cases,
         generate_data,
+        out_of_sample,
         resolution_comparison,
+        resolve_expert,
         resolve_model,
         statistical,
         train,
     )
     from superresolution_for_pdes_tpu_torch.cli.upscale import main
+    from superresolution_for_pdes_tpu_torch.eval.out_of_sample import evaluate_out_of_sample
     from superresolution_for_pdes_tpu_torch.eval.resolution import run_resolution_sweep
-    from superresolution_for_pdes_tpu_torch.eval.statistical import run_statistical_benchmark
+    from superresolution_for_pdes_tpu_torch.eval.statistical import (
+        run_single_example,
+        run_statistical_benchmark,
+    )
+    from superresolution_for_pdes_tpu_torch.eval.test_cases import run_generalization_grid
     from superresolution_for_pdes_tpu_torch.models import AttentionUNet
     from superresolution_for_pdes_tpu_torch.data.generate import (
         generate_mixed_dataset,
@@ -84,6 +92,12 @@ def test_entry_points_raise_without_a_card(tmp_path):
         lambda: resolution_comparison.main(["--bundle", str(tmp_path), "--out", str(tmp_path)]),
         lambda: compare_methods.main(["--model_path", str(tmp_path), "--out", str(tmp_path)]),
         lambda: selffeed_cascade_dataset(model, None, 0, 2, finest=80),
+        lambda: resolve_expert(str(tmp_path)),
+        lambda: out_of_sample.main(["--model_path", str(tmp_path), "--out", str(tmp_path)]),
+        lambda: compare_test_cases.main(["--model_path", str(tmp_path), "--out", str(tmp_path)]),
+        lambda: evaluate_out_of_sample(model, None, 0, n_samples=2),
+        lambda: run_generalization_grid(model, None, 0, n_samples=2),
+        lambda: run_single_example(model, None, 0, (80,), (8.0, 12.0), "tile"),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -10,7 +10,13 @@ import torch
 
 from superresolution_for_pdes_tpu.models import AttentionUNet as FlaxUNet
 from superresolution_for_pdes_tpu.models.torch_import import torch_state_dict_to_variables
-from superresolution_for_pdes_tpu_torch.models import AttentionUNet, build_model, count_parameters
+from superresolution_for_pdes_tpu_torch.models import (
+    AttentionUNet,
+    PDEResNet,
+    available_models,
+    build_model,
+    count_parameters,
+)
 from superresolution_for_pdes_tpu_torch.models.convert import variables_to_state_dict
 
 from torch_port_helpers import TINY, f32
@@ -122,7 +128,8 @@ def test_tiny_group_norm_matches_flax(rng):
 def test_registry():
     wide = build_model("attention_unet_wide", enc_features=(16, 32, 64))
     assert wide.bridge[0].out_channels == 768
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("resnet")
-    with pytest.raises(ValueError):
+    assert available_models() == ("attention_unet", "attention_unet_wide", "resnet")
+    resnet = build_model("resnet", features=16, num_blocks=2)
+    assert isinstance(resnet, PDEResNet) and resnet.block2.conv1.out_channels == 16
+    with pytest.raises(ValueError, match="unknown model"):
         build_model("nope")

@@ -125,4 +125,4 @@ def test_compare_methods_cli(tmp_path, capsys):
     assert loaded["summary"] == fresh["summary"]
     assert (tmp_path / "loaded" / "compare_metrics.json").is_file()
     assert "bicubic: MAE" in capsys.readouterr().out
-    assert {"compare_methods", "diagnose"} <= set(COMMANDS) and len(COMMANDS) == 7
+    assert {"compare_methods", "diagnose"} <= set(COMMANDS) and len(COMMANDS) == 9

@@ -258,9 +258,7 @@ def test_clis_generate_train_and_resume(tmp_path, capsys):
     (train_cli, ["--multihost"]),
     (train_cli, ["--tensorboard"]),
     (train_cli, ["--dtype", "bfloat16"]),
-    (train_cli, ["--model", "resnet"]),
     (gen_cli, ["--n_selffeed_scenes", "2"]),
-    (gen_cli, ["--plot_samples", "3"]),
 ])
 def test_unported_flags_raise(cli, argv, capsys):
     """Each flag the port does not run raises; the self-fed counts without a
@@ -273,7 +271,7 @@ def test_unported_flags_raise(cli, argv, capsys):
 
 
 @pytest.mark.parametrize("model,flags", [("attention_unet", []), ("attention_unet_wide", []),
-                                         ("resnet", ["--model resnet"])])
+                                         ("resnet", [])])
 def test_train_accepts_every_model_the_registry_builds(model, flags):
     args = SimpleNamespace(fused_epochs=0, data_parallel=False, multihost=False,
                            tensorboard=False, dtype="float32", model=model)
