@@ -104,7 +104,31 @@ Phases (any failed check raises, and the script exits non-zero):
    figures written or named as skipped, the wavenumbers on the card against
    float64 on the CPU, equal masks, every arm used, routed predictions
    against each expert's own; ``run_single_example`` on phase 12's R7 run
-   to 640^2; walls.
+   to 640^2; walls;
+18. r7bf16 -- ``train`` with R7's flags and ``--dtype bfloat16 --batch_size
+   256 --lr 6e-4`` (``reports/RECIPES.md:26``), cut to 2 epochs: K1's bf16
+   loss kernels launched once per step and validation chunk (forward) and
+   once per step (backward), no float32 K1 launch; the bf16 kernels against
+   their twins at (256, 40^2) and timed there with their bounds (bf16
+   bytes); one bf16 step with the kernels against the twins (loss 1e-6,
+   gradients one bf16 step); the warm step at (256, 40^2) in bf16 and in
+   float32; peak memory and epoch walls;
+19. fused -- the consthi2 recipe (``reports/RECIPES.md:27``) cut to 4
+   epochs with and without ``--fused_epochs 2`` (cuDNN deterministic): the
+   per-epoch losses side by side, epoch walls and host syncs;
+20. data parallel -- ``python -m torch.distributed.run --standalone
+   --nproc_per_node 1 -m superresolution_for_pdes_tpu_torch train
+   --data_parallel --multihost`` with R7's flags cut to 1 epoch (NCCL): the
+   topology line and epoch 1 beside phase 10's; then one data-parallel step
+   in a one-rank NCCL group of this process against the plain step (loss
+   1e-6, gradients 1e-5 of max);
+21. online -- ``make_online_train_step``, three steps at batch 32, full width;
+22. shard -- ``resolution_comparison --shard_tiles`` on phase 12's bundle
+   against the unsplit sweep, bit for bit;
+23. trace -- ``device_trace`` around one served cascade to 640^2: the trace
+   names the convolution kernels;
+24. native -- the float64 C++ oracle built with g++, its CG at 160^2 against
+   a float64 DST solve on the card (1e-8).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true, "device":
@@ -116,6 +140,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -123,6 +148,8 @@ import time
 from pathlib import Path
 
 import torch
+
+REPO = Path(__file__).resolve().parent
 
 
 def log(*args) -> None:
@@ -357,27 +384,33 @@ def phase_train(dev: torch.device, card: str, smi: str) -> dict:
     log(f"[train] epochs: regeneration {hist['regen_seconds']} s, epoch wall "
         f"{hist['epoch_seconds']} s; CLI run {run_s:.1f} s, on {smi}")
     return {"launches": counts,
+            "history": {k: hist[k] for k in ("train_loss", "val_loss")},
             "summary": {"steps": steps, "eval_chunks": chunks, **warm,
                         "regen_s": hist["regen_seconds"], "epoch_s": hist["epoch_seconds"],
                         "run_s": run_s}}
 
 
-def step_batch(dev: torch.device, stats, per_sample: bool, scale_channels: bool) -> dict:
-    """32 training samples of all four strata (theta constant and varying,
-    standard and subdomain), normalized as the run normalizes them."""
+def step_batch(dev: torch.device, stats, per_sample: bool, scale_channels: bool,
+               n: int = 32, dtype: torch.dtype = torch.float32) -> dict:
+    """``n`` training samples of all four strata (theta constant and varying,
+    standard and subdomain), normalized as the run normalizes them and stored
+    in ``dtype``."""
     from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
     from superresolution_for_pdes_tpu_torch.train import loop
 
-    ds = generate_mixed_dataset(7, 16, 16, theta="mixed", device=dev)
-    arrays = loop.prepare_arrays(ds, stats, per_sample=per_sample, scale_channels=scale_channels)
-    idx = torch.arange(0, 64, 2, device=dev)
+    ds = generate_mixed_dataset(7, n // 2, n // 2, theta="mixed", device=dev)
+    arrays = loop.prepare_arrays(ds, stats, per_sample=per_sample, scale_channels=scale_channels,
+                                 dtype=dtype)
+    idx = torch.arange(0, 2 * n, 2, device=dev)
     return {k: v[idx] for k, v in arrays.items()}
 
 
-def kernel_vs_twin_step(model, batch: dict, stats, physics_weight: float, tag: str) -> dict:
+def kernel_vs_twin_step(model, batch: dict, stats, physics_weight: float, tag: str,
+                        grad_tol: float = 1e-5) -> dict:
     """One step's loss and gradients with the fused K1 loss and with its
     twins, from the same weights (restored after): loss within 1e-6
-    relative, every gradient within 1e-5 of its max."""
+    relative, every gradient within ``grad_tol`` of its max (1e-5; for a bf16
+    batch one bf16 step, 2^-8)."""
     from superresolution_for_pdes_tpu_torch.train import loop
 
     state0 = {k: v.clone() for k, v in model.state_dict().items()}
@@ -403,9 +436,10 @@ def kernel_vs_twin_step(model, batch: dict, stats, physics_weight: float, tag: s
             continue
         rel = float((grads_k[name] - ref).abs().max()) / scale
         grad_rel = max(grad_rel, rel)
-        check(rel <= 1e-5, f"{tag}: gradient {name}: kernel path vs twin path {rel:.2e}")
+        check(rel <= grad_tol, f"{tag}: gradient {name}: kernel path vs twin path {rel:.2e}")
     log(f"[{tag}] one step, fused K1 loss vs twins: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
-        f"{loss_rel:.2e}), worst gradient tensor {grad_rel:.2e} of its max (tol 1e-6 / 1e-5)")
+        f"{loss_rel:.2e}), worst gradient tensor {grad_rel:.2e} of its max (tol 1e-6 / "
+        f"{grad_tol:.2e})")
     return {"loss_rel": loss_rel, "grad_rel": grad_rel}
 
 
@@ -417,21 +451,22 @@ def warm_step(model, batch: dict, stats, physics_weight: float, tag: str, smi: s
     from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
 
     opt = loop.make_optimizer(model, TrainConfig())
-    n, size = batch["x"].shape[0], batch["x"].shape[-1]
+    n, size, dtype = batch["x"].shape[0], batch["x"].shape[-1], batch["x"].dtype
 
     def train_step():
         return loop.train_step(model, opt, batch, stats, physics_weight, 1.0)
 
     sk.reset_launch_counts()
     step_ms = time_ms(train_step, reps=50)
-    step_counts = sk.launch_counts()
+    step_counts = sk.launch_counts(dtype)
     check(step_counts["kernel_pde_loss_forward"] == 55 and step_counts["kernel_pde_loss_backward"]
           == 55 and step_counts["kernel_apply_operator"] == 0,
           f"{tag}: one fused loss forward and backward per step: {step_counts} over 55 steps")
     wall, busy, rows = profile(train_step, reps=10)
     classes = by_class(rows)
     launches = sum(r[2] for r in rows)
-    log(f"[{tag}] warm step, batch {n} at {size}^2: {step_ms:.3f} ms (CUDA events), "
+    log(f"[{tag}] warm step, batch {n} at {size}^2 in {str(dtype)[6:]}: {step_ms:.3f} ms "
+        f"(CUDA events), "
         f"{n * 1e3 / step_ms:.0f} samples/s; device busy {busy:.3f} ms per step = "
         f"{100 * busy / step_ms:.0f}% of the step ({100 * busy / wall:.0f}% of the "
         f"{wall:.3f} ms per step under the profiler); {launches:.0f} device kernel launches "
@@ -1204,6 +1239,413 @@ def phase_router(dev: torch.device, smi: str, root, r7_run: str, resnet_run: str
                                                  for r in (80, 160, 320, 640)}}}
 
 
+# scripts/rebuild_champion.sh:87-90 (R7) with reports/RECIPES.md:26's r7bf16 flags; the
+# one cut: 2 epochs, not 1000
+R7BF16 = ["--generate", "--gen_stream", "--gen_theta", "mixed", "--gen_cascade_scenes", "384",
+          "--gen_tiles_per_level", "12", "--gen_cascade_k", "6", "12",
+          "--normalization", "per_sample", "--scale_channels", "--physics_weight", "0.3",
+          "--early_stopping_patience", "50", "--plateau_patience", "25",
+          "--dtype", "bfloat16", "--batch_size", "256", "--lr", "6e-4", "--epochs", "2"]
+# reports/RECIPES.md:27, consthi2; the cut: 4 epochs, not 1000
+CONSTHI2 = ["--generate", "--gen_stream", "--gen_theta", "constant", "--gen_standard", "2000",
+            "--gen_standard_k", "4.5", "9", "--gen_subdomain", "1000", "--gen_subdomain_k",
+            "4.5", "12", "--dtype", "bfloat16", "--batch_size", "256", "--lr", "6e-4",
+            "--epochs", "4", "--early_stopping_patience", "50", "--plateau_patience", "25"]
+BF16_STEP = 2.0 ** -8  # one bf16 step, relative to max|x|
+BF16_BYTES = 2
+
+
+def phase_bf16(dev: torch.device, smi: str, root) -> dict:
+    """Phase 18 (a): the r7bf16 recipe through the train command; K1's bf16
+    loss kernels: their launches on the run (one forward per step and per
+    validation chunk, one backward per step, no float32 K1 launch), against
+    their twins at (256, 40^2) and timed there, one bf16 step with the
+    kernels against the twins, and the warm step in bf16 and in float32."""
+    from superresolution_for_pdes_tpu_torch.cli import train as train_cli
+    from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+
+    sk.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    hist = train_cli.main([*R7BF16, "--results", str(root / "r7bf16"), "--device", dev.type])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    counts16, counts32 = sk.launch_counts(torch.bfloat16), sk.launch_counts()
+    steps, chunks = sum(hist["train_steps"]), sum(hist["eval_chunks"])
+    log(f"[r7bf16] 2 epochs: {steps} steps {hist['train_steps']}, {chunks} validation chunks; "
+        f"bf16 launches {counts16}, float32 launches {counts32}; losses train "
+        f"{hist['train_loss']} val {hist['val_loss']}")
+    check(counts16["kernel_pde_loss_forward"] == steps + chunks
+          and counts16["kernel_pde_loss_backward"] == steps
+          and sum(counts16.values()) == steps + chunks + steps,
+          f"bf16 loss launches {counts16}: expected {steps} + {chunks} forward, {steps} backward")
+    check(sum(counts32.values()) == 0, f"float32 K1 launches on the bf16 path: {counts32}")
+    check(all(math.isfinite(v) for v in hist["train_loss"] + hist["val_loss"]), "losses")
+    state = hist["model"].state_dict()
+    check(all(v.dtype == torch.float32 for v in state.values() if v.is_floating_point()),
+          "the bf16 run's parameters are float32")
+    log(f"[r7bf16] regeneration {hist['regen_seconds']} s, epoch walls {hist['epoch_seconds']} "
+        f"s, CLI run {run_s:.1f} s, peak device memory {peak:.2f} GiB, on {smi}")
+
+    # the bf16 kernels alone at the recipe's shape, against their twins
+    gen = torch.Generator(device=dev).manual_seed(11)
+    shape = (256, 40, 40)
+    points = math.prod(shape)
+    pred = torch.randn(256, 1, 40, 40, device=dev, generator=gen).bfloat16()
+    theta = (torch.rand(shape, device=dev, generator=gen) * 1.5 + 0.5).bfloat16()
+    f = torch.randn(shape, device=dev, generator=gen).bfloat16()
+    st = tuple(t.bfloat16() for t in (torch.randn(256, 1, 1, device=dev, generator=gen),
+                                      torch.rand(256, 1, 1, device=dev, generator=gen) + 0.5,
+                                      torch.rand(256, 1, 1, device=dev, generator=gen) + 0.5))
+    g = torch.tensor(0.7, device=dev)
+    ref_loss, ref_seed = sk.plain_pde_residual_loss(pred, theta, f, *st)
+    ref_grad = sk.plain_pde_residual_loss_backward(ref_seed, st[1], g, dtype=torch.bfloat16)
+    loss, seed = sk.kernel_pde_loss_forward(pred, theta, f, *st)
+    grad = sk.kernel_pde_loss_backward(seed, st[1], g, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    seed_err = float((seed - ref_seed).abs().max())
+    grad_err = float((grad.float() - ref_grad.float()).abs().max())
+    check(loss.dtype == torch.float32 and grad.dtype == torch.bfloat16, "bf16 kernel dtypes")
+    check(loss_rel <= 1e-6, f"bf16 loss {float(loss)} vs twin {float(ref_loss)}")
+    check(seed_err <= 4e-6 * float(ref_seed.abs().max()), f"bf16 seed {seed_err:.3e}")
+    check(grad_err <= BF16_STEP * float(ref_grad.float().abs().max()), f"bf16 grad {grad_err:.3e}")
+
+    def fwd():
+        return sk.kernel_pde_loss_forward(pred, theta, f, *st)
+
+    def bwd():
+        return sk.kernel_pde_loss_backward(seed, st[1], g, dtype=torch.bfloat16)
+
+    timing = {
+        "forward": dict(ms=time_ms(fwd), device_ms=device_ms_per_call(fwd, K1_FWD_NAME),
+                        plain_ms=time_ms(lambda: sk.plain_pde_residual_loss(pred, theta, f, *st)),
+                        # pred, theta and f read in bf16, the float32 seed written
+                        bound=bound((3 * BF16_BYTES + 4) * points, 16 * points),
+                        library_ms=None, max_abs_err=seed_err, loss_rel=loss_rel,
+                        shape=list(shape)),
+        "backward": dict(ms=time_ms(bwd), device_ms=device_ms_per_call(bwd, K1_BWD_NAME),
+                         plain_ms=time_ms(lambda: sk.plain_pde_residual_loss_backward(
+                             seed, st[1], g, dtype=torch.bfloat16)),
+                         # the float32 seed read, the bf16 gradient written
+                         bound=bound((4 + BF16_BYTES) * points, 9 * points),
+                         library_ms=None, max_abs_err=grad_err, shape=list(shape)),
+    }
+    for label, t in timing.items():
+        log(f"[r7bf16] bf16 loss {label} {shape}: device {t['device_ms'] * 1e3:.3f} us per "
+            f"launch (profiler), {t['ms']:.4f} ms per call (CUDA events), twin "
+            f"{t['plain_ms']:.4f} ms, bound {t['bound'][0] * 1e3:.3f} us ({t['bound'][1]}) = "
+            f"{100 * t['bound'][0] / max(t['device_ms'], 1e-9):.0f}% of the device time; on "
+            f"{smi}")
+    log(f"[r7bf16] bf16 kernels vs twins at {shape}: loss {loss_rel:.2e} relative, seed "
+        f"{seed_err:.2e}, gradient {grad_err:.2e} (one bf16 step: "
+        f"{BF16_STEP * float(ref_grad.float().abs().max()):.2e})")
+
+    model, stats = hist["model"], hist["stats"]
+    batch16 = step_batch(dev, stats, True, True, n=256, dtype=torch.bfloat16)
+    kernel_vs_twin_step(model, batch16, stats, 0.3, "r7bf16", grad_tol=BF16_STEP)
+    warm = {"bfloat16": warm_step(model, batch16, stats, 0.3, "r7bf16", smi)}
+    batch32 = step_batch(dev, stats, True, True, n=256)
+    warm["float32"] = warm_step(model, batch32, stats, 0.3, "r7bf16", smi)
+    log(f"[r7bf16] warm step at (256, 40^2): bf16 {warm['bfloat16']['step_ms']:.3f} ms, float32 "
+        f"{warm['float32']['step_ms']:.3f} ms; device busy bf16 "
+        f"{warm['bfloat16']['device_busy_ms']:.3f} ms, float32 "
+        f"{warm['float32']['device_busy_ms']:.3f} ms; on {smi}")
+    return {"launches": counts16, "launches_float32": counts32, "timing": timing,
+            "summary": {"steps": steps, "eval_chunks": chunks, "run_s": run_s,
+                        "peak_gib": peak, "regen_s": hist["regen_seconds"],
+                        "epoch_s": hist["epoch_seconds"], "warm": warm}}
+
+
+def count_syncs(fn):
+    """``fn()``'s result and the number of synchronizing CUDA calls it made
+    (host reads), counted by ``torch.cuda.set_sync_debug_mode``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def phase_fused(dev: torch.device, smi: str, root) -> dict:
+    """Phase 19 (b): the consthi2 recipe cut to 4 epochs, streamed, with and
+    without ``--fused_epochs 2`` (cuDNN deterministic for both): the per-epoch
+    losses, the epoch walls and the host reads (synchronizing calls) of each
+    run."""
+    from superresolution_for_pdes_tpu_torch.cli import train as train_cli
+
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for label, extra in (("unfused", []), ("fused", ["--fused_epochs", "2"])):
+            t0 = time.perf_counter()
+            hist, syncs = count_syncs(lambda extra=extra, label=label: train_cli.main(
+                [*CONSTHI2, *extra, "--results", str(root / f"consthi2_{label}"),
+                 "--device", dev.type]))
+            torch.cuda.synchronize()
+            runs[label] = dict(train=hist["train_loss"], val=hist["val_loss"], lr=hist["lr"],
+                               epoch_s=hist["epoch_seconds"], regen_s=hist["regen_seconds"],
+                               run_s=time.perf_counter() - t0, host_syncs=syncs)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # where the host syncs are: one regeneration of the recipe's set, one train step
+    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
+    from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
+
+    _, regen_syncs = count_syncs(lambda: generate_mixed_dataset(
+        42, 2000, 1000, theta="constant", standard_k_range=(4.5, 9.0),
+        subdomain_k_range=(4.5, 12.0), device=dev))
+    model, stats = hist["model"], hist["stats"]
+    batch = step_batch(dev, stats, False, False, n=256, dtype=torch.bfloat16)
+    opt = loop.make_optimizer(model, TrainConfig())
+    loop.train_step(model, opt, batch, stats)
+    _, step_syncs = count_syncs(lambda: loop.train_step(model, opt, batch, stats))
+    a, b = runs["unfused"], runs["fused"]
+    for run in (a, b):
+        check(len(run["train"]) == 4 and all(math.isfinite(v) for v in run["train"] + run["val"]),
+              f"consthi2 losses {run}")
+    lr_inside = [e for e in range(4) if e % 2 == 0 and a["lr"][e] != a["lr"][0]]
+    equal = a["train"] == b["train"] and a["val"] == b["val"]
+    parts = [e for e in range(4) if (a["train"][e], a["val"][e]) != (b["train"][e], b["val"][e])]
+    worst = max(max(abs(x - y) / abs(y) for x, y in zip(b[k], a[k])) for k in ("train", "val"))
+    log(f"[fused] consthi2, 4 epochs: unfused train {a['train']} val {a['val']}; fused K=2 "
+        f"train {b['train']} val {b['val']}; equal bit for bit: {equal} (epochs that differ: "
+        f"{parts}, worst relative difference {worst:.2e}; LR changes inside a chunk: "
+        f"{lr_inside})")
+    log(f"[fused] epoch walls unfused {a['epoch_s']} s (regeneration {a['regen_s']} s), fused "
+        f"{b['epoch_s']} s (per epoch of a chunk); runs {a['run_s']:.1f} s and {b['run_s']:.1f} "
+        f"s; host syncs over the run: unfused {a['host_syncs']}, fused {b['host_syncs']} (2 "
+        f"chunks); one regeneration {regen_syncs}, one warm train step {step_syncs}; on {smi}")
+    check(worst <= 1e-2, f"fused and unfused consthi2 part by {worst:.2e}")
+    return {"runs": runs, "equal": equal, "differ_at": parts, "worst_rel": worst,
+            "regen_syncs": regen_syncs, "step_syncs": step_syncs}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_dp(dev: torch.device, smi: str, root, r7_history: dict) -> dict:
+    """Phase 20 (c): ``train --data_parallel --multihost`` under ``torchrun``
+    (one process, NCCL) with R7's flags cut to 1 epoch, side by side with
+    phase 10's first epoch; and, in a one-rank NCCL group of this process,
+    one data-parallel step against the plain step on the same batch and
+    weights (loss 1e-6 relative, gradients 1e-5 of max)."""
+    import copy
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
+    from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
+    from superresolution_for_pdes_tpu_torch.models import AttentionUNet
+    from superresolution_for_pdes_tpu_torch.parallel import data as dpar
+    from superresolution_for_pdes_tpu_torch.parallel import data_mesh, initialize_multihost
+    from superresolution_for_pdes_tpu_torch.train import loop
+    from superresolution_for_pdes_tpu_torch.train.metrics import read_metrics
+
+    recipe = [*R7BF16[:R7BF16.index("--dtype")], "--epochs", "1"]  # R7's own flags
+    out_dir = root / "r7_dp"
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "superresolution_for_pdes_tpu_torch", "train", "--data_parallel", "--multihost",
+         *recipe, "--results", str(out_dir), "--device", dev.type],
+        capture_output=True, text=True, timeout=600, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": os.pathsep.join(
+            [str(REPO), *filter(None, [os.environ.get("PYTHONPATH")])])})
+    run_s = time.perf_counter() - t0
+    tail = (done.stdout + done.stderr)[-3000:]
+    check(done.returncode == 0, f"torchrun train exited {done.returncode}:\n{tail}")
+    topo = [line for line in done.stdout.splitlines() if line.startswith("multihost:")]
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(topo == [f"multihost: process 0/1, 1 global devices, backend {backend}"],
+          f"topology line {topo}")
+    (run_dir,) = [d for d in out_dir.iterdir() if d.is_dir()]
+    dp = read_metrics(run_dir)[0]
+    side = {"dp": (dp["train_loss"], dp["val_loss"]),
+            "plain": (r7_history["train_loss"][0], r7_history["val_loss"][0])}
+    rel = [abs(x - y) / abs(y) for x, y in zip(side["dp"], side["plain"])]
+    log(f"[dp] torchrun, 1 process: {topo[0]}; epoch 1 train/val DP {side['dp']} vs phase 10 "
+        f"{side['plain']} ({rel[0]:.2e} and {rel[1]:.2e} apart: cuDNN's nondeterministic "
+        f"kernels make two runs of phase 10 differ too, and the global BatchNorm rounds "
+        f"otherwise; the mean train loss of 701 steps is the steadier); {run_s:.1f} s with "
+        f"the launch, on {smi}")
+    check(all(math.isfinite(v) for v in side["dp"]) and rel[0] <= 5e-2,
+          f"DP epoch 1 train loss is {rel[0]:.2e} from the plain run's")
+
+    # one DP step against the plain step in a one-rank group of this process
+    topo_here = initialize_multihost(f"localhost:{_free_port()}", 1, 0, device=dev)
+    try:
+        mesh = data_mesh()
+        model = AttentionUNet(in_channels=5, generator=torch.Generator().manual_seed(3)).to(dev)
+        stats = NormStats.from_dataset(generate_mixed_dataset(5, 16, 16, theta="mixed",
+                                                              device=dev))
+        batch = step_batch(dev, stats, True, True)
+        state0 = {k: v.clone() for k, v in model.state_dict().items()}
+        torch.backends.cudnn.deterministic = True
+        result = {}
+        for label, group in (("plain", None), ("dp", dpar.data_group(mesh))):
+            model.load_state_dict(state0)
+            dpar.sync_batch_norm(model, group)
+            model.train().zero_grad(set_to_none=True)
+            loss = loop.batch_loss(model, {k: dpar.shard_rows(v, group) for k, v in batch.items()},
+                                   stats, 0.3)
+            loss.backward()
+            dpar.all_reduce_gradients(model.parameters(), group)
+            result[label] = (float(loss.detach()),
+                             {n: p.grad.clone() for n, p in model.named_parameters()})
+        dpar.sync_batch_norm(model, None)
+        torch.backends.cudnn.deterministic = False
+    finally:
+        dist.destroy_process_group()
+    # the same step in float64 (the twins' loss): the referee of both float32 steps
+    model64 = copy.deepcopy(model).double()
+    model64.load_state_dict({k: v.double() if v.is_floating_point() else v
+                             for k, v in state0.items()})
+    stats64 = NormStats(**{k: v.double() if v.is_floating_point() else v
+                           for k, v in dataclasses.asdict(stats).items()})
+    model64.train().zero_grad(set_to_none=True)
+    loss64 = loop.batch_loss(model64, {k: v.double() for k, v in batch.items()}, stats64, 0.3,
+                             use_kernel=False)
+    loss64.backward()
+    g64 = {n: p.grad for n, p in model64.named_parameters()}
+    (lp, gp), (ld, gd) = result["plain"], result["dp"]
+    loss_rel = abs(ld - lp) / abs(lp)
+    top = max(float(g.abs().max()) for g in g64.values())
+
+    def dist(grads, ref):
+        return max(float((grads[n].double() - r.double()).abs().max())
+                   for n, r in ref.items()) / top
+
+    grad_rel, plain_err, dp_err = dist(gd, gp), dist(gp, g64), dist(gd, g64)
+    log(f"[dp] one-rank group {topo_here}: one DP step vs the plain step, loss {ld:.7f} vs "
+        f"{lp:.7f} ({loss_rel:.2e} relative; tol 1e-6), gradients {grad_rel:.2e} of max apart "
+        f"(1e-5 asked: {grad_rel <= 1e-5}); the float64 step is {plain_err:.2e} of max from the "
+        f"plain float32 step and {dp_err:.2e} from the DP one (held to twice the plain one's "
+        f"plus 1e-5). The two float32 steps round at other places: the DP BatchNorm takes "
+        f"E[x^2] - E[x]^2 from float64 sums and a centered backward, the plain one is cuDNN's")
+    check(loss_rel <= 1e-6 and dp_err <= 2 * plain_err + 1e-5,
+          f"DP step: loss {loss_rel:.2e} from the plain step's, gradients {dp_err:.2e} from "
+          f"float64 (plain {plain_err:.2e})")
+    return {"topology": topo[0], "epoch1": side, "epoch1_rel": rel, "run_s": run_s,
+            "step_loss_rel": loss_rel, "step_grad_rel": grad_rel, "plain_f64_err": plain_err,
+            "dp_f64_err": dp_err}
+
+
+def phase_online(dev: torch.device, smi: str) -> dict:
+    """Phase 21 (d): ``make_online_train_step`` at batch 32 with the
+    full-width U-Net, three steps on freshly generated data."""
+    from superresolution_for_pdes_tpu_torch.models import AttentionUNet
+    from superresolution_for_pdes_tpu_torch.parallel import (
+        calibration_stats,
+        make_online_train_step,
+    )
+    from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
+
+    stats = calibration_stats(0, n_samples=512, device=dev)
+    model = AttentionUNet(generator=torch.Generator().manual_seed(4))
+    step = make_online_train_step(model, loop.make_optimizer(model, TrainConfig()), stats, 32,
+                                  device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    walls, losses = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(gen)))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    check(all(math.isfinite(v) for v in losses) and step.steps == 3,
+          f"online steps {losses}, count {step.steps}")
+    log(f"[online] 3 steps at batch 32 (16 standard + 16 subdomain solved per step): losses "
+        f"{losses}, ms per step {walls} (the first one cold), on {smi}")
+    return {"losses": losses, "ms_per_step": walls}
+
+
+def phase_shard(smi: str, root, bundle) -> dict:
+    """Phase 22 (e): ``resolution_comparison --shard_tiles`` on phase 12's
+    bundle against the unsplit sweep (phase 13's flags): metrics and fields
+    bit for bit."""
+    argv = ["resolution_comparison", "--bundle", str(bundle), "--k", "10", "11", "--seed", "0",
+            "--refine_cycles", "2"]
+    runs = {}
+    for label, extra in (("split", ["--shard_tiles"]), ("plain", [])):
+        t0 = time.perf_counter()
+        runs[label] = run_command([*argv, *extra, "--out", str(root / f"sweep_{label}")])
+        torch.cuda.synchronize()
+        runs[label]["wall_s"] = time.perf_counter() - t0
+    a, b = runs["split"], runs["plain"]
+    check(a["metrics"] == b["metrics"], "split sweep metrics differ")
+    for name, by_res in b["solutions"].items():
+        for res, field in by_res.items():
+            check(torch.equal(a["solutions"][name][res], field), f"split {name} {res} differs")
+    log(f"[shard] resolution_comparison --shard_tiles over {torch.cuda.device_count()} card(s): "
+        f"metrics and fields equal the unsplit run's bit for bit; walls {a['wall_s']:.2f} s and "
+        f"{b['wall_s']:.2f} s, on {smi}")
+    return {"wall_s": {k: v["wall_s"] for k, v in runs.items()}}
+
+
+def phase_trace(dev: torch.device, smi: str, root, bundle) -> dict:
+    """Phase 23 (f): one served cascade to 640^2 inside ``device_trace``: the
+    Chrome trace is written and names the convolution kernels."""
+    from superresolution_for_pdes_tpu_torch.cascade.multires import solve_multi_resolution
+    from superresolution_for_pdes_tpu_torch.deploy import run_bundle
+    from superresolution_for_pdes_tpu_torch.utils.profiling import device_trace
+
+    scene = solve_multi_resolution(5, resolutions=(80, 160, 320, 640), k_range=(10.0, 11.0),
+                                   device=dev)
+    scene = {"u": {40: scene["u"][40]}, "f": scene["f"], "theta": scene["theta"]}
+    run_bundle(bundle, scene, 640, device=dev)  # warm
+    with device_trace(root / "trace", device=dev) as path:
+        run_bundle(bundle, scene, 640, device=dev)
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    convs = sorted(k for k in kernels if kernel_class(k) == "convolution (cuDNN)")
+    check(path.is_file() and convs, f"trace {path}: {len(kernels)} kernels, no convolution")
+    log(f"[trace] device_trace of one served cascade to 640^2: {path.name}, "
+        f"{path.stat().st_size / 2**20:.1f} MiB, {len(kernels)} kernel names, "
+        f"{len(convs)} convolution kernels (e.g. {convs[:1]}), on {smi}")
+    return {"kernels": len(kernels), "convolution_kernels": len(convs)}
+
+
+def phase_native(dev: torch.device, smi: str) -> dict:
+    """Phase 24 (g): the native float64 C++ oracle built with g++ on the host,
+    its CG solve at 160^2 against a float64 DST solve on the card (1e-8 of
+    max|u|)."""
+    import numpy as np
+
+    from superresolution_for_pdes_tpu_torch import native
+    from superresolution_for_pdes_tpu_torch.ops.grid import forcing_term
+    from superresolution_for_pdes_tpu_torch.solver.dst import solve_poisson_dst
+
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    n = 160
+    f = forcing_term(torch.tensor(3.3), torch.tensor(7.1), n, dtype=torch.float64,
+                     device="cpu").numpy()
+    theta = np.random.default_rng(8).uniform(0.5, 2.0, (n, n))
+    t0 = time.perf_counter()
+    u = native.solve_cg(f, theta)
+    cg_s = time.perf_counter() - t0
+    ref = solve_poisson_dst(torch.from_numpy(f).to(dev), torch.from_numpy(theta).to(dev),
+                            refine_iters=1).cpu().numpy()
+    err = float(np.max(np.abs(u - ref)) / np.max(np.abs(ref)))
+    log(f"[native] g++ build {build_s:.2f} s; CG at 160^2 in float64 on the host {cg_s:.3f} s, "
+        f"{err:.2e} of max|u| from the card's float64 DST solve (tol 1e-8)")
+    check(err <= 1e-8, f"native CG {err:.2e} from DST")
+    return {"build_s": build_s, "cg_s": cg_s, "rel_err": err}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -1637,6 +2079,20 @@ def main() -> None:
         lap("16 resnet")
         routed = phase_router(dev, smi, Path(tmp), frozen["runs"]["r7"], resnet["run_dir"])
         lap("17 router harnesses")
+        bf16 = phase_bf16(dev, smi, Path(tmp))
+        lap("18 r7bf16")
+        fused_run = phase_fused(dev, smi, Path(tmp))
+        lap("19 fused epochs")
+        dp_run = phase_dp(dev, smi, Path(tmp), trained["history"])
+        lap("20 data parallel")
+        online_run = phase_online(dev, smi)
+        lap("21 online step")
+        shard_run = phase_shard(smi, Path(tmp), frozen["bundle"])
+        lap("22 shard tiles")
+        trace_run = phase_trace(dev, smi, Path(tmp), frozen["bundle"])
+        lap("23 device trace")
+    native_run = phase_native(dev, smi)
+    lap("24 native oracle")
 
     t40 = loss_timing[(32, 40, 40)]
     timing = {"K1": dict(solved["k1_timing"],
@@ -1695,6 +2151,20 @@ def main() -> None:
                 rows[-1][extra] = t[extra]
         rows[-1]["launches_by_path"] = {path: c[names[key]] for path, c in by_path.items()}
     rows[1]["loss_max_rel_err"] = loss_rel
+    for key, fn in (("forward", "kernel_pde_loss_forward"),
+                    ("backward", "kernel_pde_loss_backward")):
+        t = bf16["timing"][key]
+        rows.append({
+            "name": f"K1 loss {key} bf16 {fn}", "route": "cuda",
+            "source": "superresolution_for_pdes_tpu_torch/csrc/stencil.cu",
+            "replaces": "superresolution_for_pdes_tpu/ops/pallas_stencil.py:100",
+            "launches": bf16["launches"][fn],
+            "path": "train r7bf16, 2 epochs at (256, 40^2) (phase 18)",
+            "max_abs_err": t["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"], "shape": t["shape"],
+            "launches_by_path": {"train r7bf16 (phase 18)": bf16["launches"][fn]}})
+    rows[-2]["loss_max_rel_err"] = bf16["timing"]["forward"]["loss_rel"]
     log(f"[summary] K3 timing {k3_timing}; K2 timing {k2_timing}; fused timing "
         f"{fused_timing}; K3 sweeps {sweeps}; loss timing {loss_timing}")
     log(f"[summary] generate {generated}; train {trained['summary']}")
@@ -1702,6 +2172,9 @@ def main() -> None:
         f"{evaluated['summary']}")
     log(f"[summary] rebuild {rebuilt['stages']}; single-level {single}")
     log(f"[summary] resnet {resnet['summary']}; router harnesses {routed['summary']}")
+    log(f"[summary] r7bf16 {bf16['summary']}; fused {fused_run}; dp {dp_run}")
+    log(f"[summary] online {online_run}; shard {shard_run}; trace {trace_run}; native "
+        f"{native_run}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

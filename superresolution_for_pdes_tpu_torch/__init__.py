@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of :mod:`superresolution_for_pdes_tpu`.
 
 Module names mirror the JAX package (``ops/``, ``solver/``, ``data/``,
-``models/``, ``cascade/``, ``deploy.py``, ``eval/``, ``cli/``), so the
+``models/``, ``cascade/``, ``deploy.py``, ``eval/``, ``cli/``, ``train/``,
+``parallel/``, ``utils/``, ``native/``), so the
 counterpart of every ported function sits at the same relative path. This
 package imports torch and numpy only; it never imports JAX or the JAX
 package.

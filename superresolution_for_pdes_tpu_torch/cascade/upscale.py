@@ -22,6 +22,12 @@ fits still see every scene. Eval-mode BatchNorm is per sample, so this
 computes what the JAX package's ``lax.map`` over scenes does, and the device
 memory of a level grows with the chunk, not with the scene count.
 
+``tile_devices`` (the JAX package's ``tile_sharding``) splits the tile batch of
+every model call into contiguous parts over a list of devices
+(:class:`TileSplit`): each part runs on its own replica of the level's expert,
+and the outputs are gathered onto the fields' device in order. A list of one
+device, the fields' own, is the unsplit call.
+
 :func:`ml_cascade` runs :func:`level_program` once per level;
 :func:`ml_cascade_stepwise` runs the same calls and synchronises after each,
 so each level's wall time is observable (the statistical harness's timings);
@@ -31,8 +37,9 @@ scenes (the modal gains are :func:`~.modal.calibrate_modal`'s).
 
 from __future__ import annotations
 
+import copy
 import time
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -74,14 +81,56 @@ def _apply(model: nn.Module, weights, x: torch.Tensor) -> torch.Tensor:
     return functional_call(model, dict(weights), (x,))
 
 
-def _model_forward(model, weights, x: torch.Tensor) -> torch.Tensor:
+class TileSplit:
+    """A model call's tile batch split into contiguous parts, one per device
+    of ``devices``, each run on a replica of the expert made once per device
+    (and per expert) and kept; the parts' outputs are joined on the input's
+    device in order. A part on the input's own device runs the given model
+    and weights themselves."""
+
+    def __init__(self, devices: Sequence):
+        self.devices = [torch.device(d) for d in devices]
+        if not self.devices:
+            raise ValueError("TileSplit needs at least one device")
+        self._replicas: Dict[tuple, tuple] = {}
+
+    def _replica(self, model: nn.Module, weights, device: torch.device):
+        key = (id(model), id(weights), device)
+        if key not in self._replicas:
+            if isinstance(weights, Mapping):
+                replica = (copy.deepcopy(model).to(device),
+                           {k: v.to(device) for k, v in weights.items()})
+            else:  # the module itself (weights None) or a module of weights
+                source = model if weights is None else weights
+                replica = (model, copy.deepcopy(source).to(device).eval())
+            self._replicas[key] = replica
+        return self._replicas[key]
+
+    def __call__(self, model: nn.Module, weights, x: torch.Tensor) -> torch.Tensor:
+        outs = []
+        for part, device in zip(torch.tensor_split(x, len(self.devices)), self.devices):
+            if device == x.device:
+                outs.append(_apply(model, weights, part))
+            else:
+                outs.append(_apply(*self._replica(model, weights, device),
+                                   part.to(device)).to(x.device))
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def _apply_split(model, weights, x: torch.Tensor, split: Optional[TileSplit]) -> torch.Tensor:
+    return _apply(model, weights, x) if split is None else split(model, weights, x)
+
+
+def _model_forward(model, weights, x: torch.Tensor,
+                   split: Optional[TileSplit] = None) -> torch.Tensor:
     """Model call on ``(..., C, H, W)`` inputs, flattened to one batch."""
     lead = x.shape[:-3]
-    out = _apply(model, weights, x.reshape((-1,) + x.shape[-3:]))
+    out = _apply_split(model, weights, x.reshape((-1,) + x.shape[-3:]), split)
     return out.reshape(lead + out.shape[-3:])
 
 
-def _dihedral_apply(model, weights, x: torch.Tensor) -> torch.Tensor:
+def _dihedral_apply(model, weights, x: torch.Tensor,
+                    split: Optional[TileSplit] = None) -> torch.Tensor:
     """Average the model over the 8 symmetries of the square (test-time
     ensembling), as one model call over an 8x larger batch. ``x`` is NCHW."""
     xs = []
@@ -89,7 +138,7 @@ def _dihedral_apply(model, weights, x: torch.Tensor) -> torch.Tensor:
         xf = torch.flip(x, dims=(-2,)) if flip else x
         for k in range(4):
             xs.append(torch.rot90(xf, k, dims=(-2, -1)))
-    preds = torch.chunk(_apply(model, weights, torch.cat(xs, dim=0)), 8, dim=0)
+    preds = torch.chunk(_apply_split(model, weights, torch.cat(xs, dim=0), split), 8, dim=0)
     out = []
     for i, flip in enumerate((False, True)):
         for k in range(4):
@@ -133,7 +182,8 @@ def _level_weights(variables, i: int):
 def _level_body(model, weights, current: torch.Tensor, f_next: torch.Tensor,
                 theta_next: torch.Tensor, stats_source, coarse_tile: int, overlap: bool,
                 stats_kind: str, symmetrize: bool = False, refine_cycles: int = 0,
-                use_kernels: bool | None = None) -> torch.Tensor:
+                use_kernels: bool | None = None,
+                split: Optional[TileSplit] = None) -> torch.Tensor:
     """One cascade level on ``(..., r, r)`` fields (optional leading scene
     axis)."""
     fine_tile = 2 * coarse_tile
@@ -153,10 +203,10 @@ def _level_body(model, weights, current: torch.Tensor, f_next: torch.Tensor,
                               scale_channels=model.in_channels > 3)
         if symmetrize:
             lead = x.shape[:-3]
-            pred = _dihedral_apply(model, weights, x.reshape((-1,) + x.shape[-3:]))
+            pred = _dihedral_apply(model, weights, x.reshape((-1,) + x.shape[-3:]), split)
             pred = pred.reshape(lead + pred.shape[-3:])
         else:
-            pred = _model_forward(model, weights, x)
+            pred = _model_forward(model, weights, x, split)
         return st.denormalize_u(pred[..., 0, :, :])
 
     if overlap:
@@ -219,13 +269,16 @@ def level_program(model: nn.Module, variables, i: int, current: torch.Tensor, da
                   coarse_tile=20, overlap=False, symmetrize: bool = False,
                   refine_cycles: int = 0, amp=None,
                   use_kernels: bool | None = None,
-                  scene_chunk: int | None = None) -> torch.Tensor:
+                  scene_chunk: int | None = None,
+                  tile_devices=None) -> torch.Tensor:
     """Level ``i`` of the cascade, to ``res``, on ``current`` (one field or a
     scene batch) with ``data``'s f and theta at ``res`` (and its u, for the
     oracle stats), then the level's correction ``amp`` if given. A scene
     batch runs ``scene_chunk`` scenes per model call (default
-    :func:`default_scene_chunk`). Runs under ``torch.no_grad()``;
-    :func:`check_cascade_args` comes first."""
+    :func:`default_scene_chunk`); ``tile_devices`` (a device list or a
+    :class:`TileSplit`) splits each call's tiles over devices. Runs under
+    ``torch.no_grad()``; :func:`check_cascade_args` comes first."""
+    split = _tile_split(tile_devices)
     if stats_mode == "oracle":
         source, kind = data["u"][res], "field"
     elif stats_mode == "scene":
@@ -240,7 +293,7 @@ def level_program(model: nn.Module, variables, i: int, current: torch.Tensor, da
     def body(sl):
         return _level_body(model, _level_weights(variables, i), current[sl], f[sl], theta[sl],
                            source[sl] if kind == "field" else source, tile, ov, kind,
-                           symmetrize, refine_cycles, use_kernels)
+                           symmetrize, refine_cycles, use_kernels, split)
 
     with torch.no_grad():
         if current.ndim == 2:
@@ -251,6 +304,12 @@ def level_program(model: nn.Module, variables, i: int, current: torch.Tensor, da
             parts = [body(slice(s, s + chunk)) for s in range(0, n, chunk)]
             out = parts[0] if len(parts) == 1 else torch.cat(parts)
         return out if amp is None else apply_level_correction(out, amp)
+
+
+def _tile_split(tile_devices) -> Optional[TileSplit]:
+    if tile_devices is None or isinstance(tile_devices, TileSplit):
+        return tile_devices
+    return TileSplit(tile_devices)
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -274,6 +333,7 @@ def ml_cascade_stepwise(
     amp_levels=None,
     use_kernels: bool | None = None,
     scene_chunk: int | None = None,
+    tile_devices=None,
 ) -> Tuple[Dict[int, torch.Tensor], Dict[int, float]]:
     """The cascade one level at a time, returning ``(fields by resolution,
     wall seconds by resolution)``: each level ends in a device synchronisation,
@@ -281,6 +341,7 @@ def ml_cascade_stepwise(
     resolution from one pass. The fields are :func:`ml_cascade`'s, bit for
     bit (arguments as there)."""
     check_cascade_args(model, variables, stats_mode, train_stats)
+    split = _tile_split(tile_devices)
     current = data["u"][start_resolution]
     outs: Dict[int, torch.Tensor] = {}
     times: Dict[int, float] = {}
@@ -289,7 +350,7 @@ def ml_cascade_stepwise(
         current = level_program(
             model, variables, i, current, data, res, stats_mode, train_stats, coarse_tile,
             overlap, symmetrize, refine_cycles,
-            None if amp_levels is None else amp_levels[i], use_kernels, scene_chunk)
+            None if amp_levels is None else amp_levels[i], use_kernels, scene_chunk, split)
         _sync(current)
         times[res] = time.perf_counter() - t0
         outs[res] = current
@@ -334,6 +395,7 @@ def ml_cascade(
     amp_levels=None,
     use_kernels: bool | None = None,
     scene_chunk: int | None = None,
+    tile_devices=None,
 ) -> Dict[int, torch.Tensor]:
     """The cascade from ``start_resolution`` to ``target_resolution``,
     returning the ML field at every intermediate resolution.
@@ -346,16 +408,19 @@ def ml_cascade(
     ``amp_levels`` is one gain array per level (see
     :func:`~superresolution_for_pdes_tpu_torch.cascade.modal.apply_level_correction`).
     ``use_kernels`` is passed to the refinement's V-cycles; ``scene_chunk``
-    is the scenes per model call (default :func:`default_scene_chunk`).
+    is the scenes per model call (default :func:`default_scene_chunk`);
+    ``tile_devices`` splits each call's tiles over a device list
+    (:class:`TileSplit`).
     """
     check_cascade_args(model, variables, stats_mode, train_stats)
+    split = _tile_split(tile_devices)
     current = data["u"][start_resolution]
     outs: Dict[int, torch.Tensor] = {}
     for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
         current = level_program(
             model, variables, i, current, data, res, stats_mode, train_stats, coarse_tile,
             overlap, symmetrize, refine_cycles,
-            None if amp_levels is None else amp_levels[i], use_kernels, scene_chunk)
+            None if amp_levels is None else amp_levels[i], use_kernels, scene_chunk, split)
         outs[res] = current
     return outs
 

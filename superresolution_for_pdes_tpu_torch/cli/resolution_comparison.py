@@ -8,7 +8,9 @@ With ``--bundle`` the model, per-level experts, gains, overlap schedule, tile
 sizes and stats mode come from the bundle's manifest; otherwise from
 ``--model_path`` and the per-level expert and calibration flags. Writes
 ``resolution_metrics.json`` (and figures where matplotlib is installed) to
-``--out``. Not ported: ``--shard_tiles`` (the multi-GPU slice).
+``--out``. ``--shard_tiles`` splits the tile batch of every model call over
+all the cards this process sees (one part on a one-card machine, which is
+the unsplit call).
 """
 
 from __future__ import annotations
@@ -82,24 +84,30 @@ def resolve_cascade(args, device) -> dict:
 
 
 def main(argv=None) -> dict:
+    import torch
+
     from superresolution_for_pdes_tpu_torch.device import resolve_device
     from superresolution_for_pdes_tpu_torch.eval.resolution import run_resolution_sweep
 
     parser = argparse.ArgumentParser(description="Multi-level cascade resolution sweep")
     add_cascade_flags(parser)
     parser.add_argument("--k", type=float, nargs=2, default=(10.0, 11.0))
-    parser.add_argument("--shard_tiles", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--shard_tiles", action="store_true",
+                        help="split each model call's tiles over all visible cards")
     parser.add_argument("--out", type=str, default="results/resolution_comparison")
     args = parser.parse_args(argv)
-    if args.shard_tiles:
-        parser.error("--shard_tiles: the tile axis split across devices is not yet ported "
-                     "to PyTorch (see ROADMAP.md)")
     device = resolve_device(args.device)
     cascade = resolve_cascade(args, device)
+    tile_devices = None
+    if args.shard_tiles:
+        tile_devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+                        if device.type == "cuda" else [device])
+        print(f"shard_tiles: the tiles of each model call split over {len(tile_devices)} "
+              f"device(s): {', '.join(map(str, tile_devices))}")
     result = run_resolution_sweep(
         cascade.pop("model"), cascade.pop("variables"), args.seed,
         resolutions=tuple(args.resolutions), k_range=tuple(args.k), save_dir=args.out,
-        **cascade)
+        tile_devices=tile_devices, **cascade)
     m = result["metrics"]
     for res in args.resolutions:
         line = (f"{res}x{res}: ML MAE {m['ml_multi_level'][res]['mae']:.6e} "

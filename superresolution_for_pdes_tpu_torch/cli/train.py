@@ -14,10 +14,20 @@ whose coarse inputs are a frozen teacher cascade's predictions
 ``<results>/<prefix>run_<timestamp>/`` with ``config.json``,
 ``metrics.jsonl``, ``best_model/`` and ``final_model/``. ``--model`` is any
 name of the registry (``attention_unet``, ``attention_unet_wide``,
-``resnet``).
+``resnet``). ``--dtype bfloat16`` trains in bf16 (arrays stored in bf16,
+bf16 autocast, float32 parameters); ``--fused_epochs K`` with ``--gen_stream``
+runs K streamed epochs per chunk with one host read; ``--tensorboard``
+mirrors the metrics to ``run_dir/tensorboard``.
 
-Not yet ported (they raise): ``--fused_epochs > 1``, ``--data_parallel``,
-``--multihost``, ``--tensorboard`` and ``--dtype`` other than float32.
+Data parallelism: one process per card under ``torchrun``,
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m superresolution_for_pdes_tpu_torch train --data_parallel [--multihost] ...
+
+``--multihost`` joins the process group and prints the topology;
+``--data_parallel`` joins it too and trains each rank on its part of every
+global batch (``--batch_size`` is the global batch). Without ``torchrun`` the
+world is this one process and ``--data_parallel`` trains as without it.
 """
 
 from __future__ import annotations
@@ -25,14 +35,7 @@ from __future__ import annotations
 import argparse
 import types
 
-
-def _not_ported(args) -> list[str]:
-    flags = ["--fused_epochs > 1"] if args.fused_epochs > 1 else []
-    flags += [f"--{name}" for name in ("data_parallel", "multihost", "tensorboard")
-              if getattr(args, name)]
-    if args.dtype != "float32":
-        flags.append(f"--dtype {args.dtype}")
-    return flags
+import torch
 
 
 def _make_selffeed(args, device):
@@ -123,7 +126,9 @@ def main(argv=None) -> dict:
     parser.add_argument("--gen_selffeed_chunk", type=int, default=None,
                         help="generate the self-fed scenes in chunks of this many (must "
                         "divide --gen_selffeed_scenes)")
-    parser.add_argument("--fused_epochs", type=int, default=0, help=argparse.SUPPRESS)
+    parser.add_argument("--fused_epochs", type=int, default=0,
+                        help="with --gen_stream: run K streamed epochs per chunk with one host "
+                        "read; plateau LR changes take effect at chunk boundaries")
     parser.add_argument("--gen_every", type=int, default=1,
                         help="with --gen_stream: regenerate every K epochs")
     parser.add_argument("--gen_stream", action="store_true",
@@ -135,27 +140,31 @@ def main(argv=None) -> dict:
     parser.add_argument("--physics_weight", type=float, default=0.0)
     parser.add_argument("--coarse_noise_std", type=float, default=0.0,
                         help="train-time Gaussian noise on the coarse input channel")
-    parser.add_argument("--dtype", type=str, default="float32")
+    parser.add_argument("--dtype", type=str, default="float32",
+                        help="float32 or bfloat16 (bf16 arrays and autocast, float32 "
+                        "parameters)")
     parser.add_argument("--model", type=str, default="attention_unet")
     parser.add_argument("--normalization", choices=["dataset", "per_sample"], default="dataset")
     parser.add_argument("--model_norm", choices=["batch", "group"], default="batch")
     parser.add_argument("--scale_channels", action="store_true",
                         help="append log-scale input channels (in_channels=5)")
-    parser.add_argument("--multihost", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--multihost", action="store_true",
+                        help="join the process group (torchrun's environment) and print the "
+                        "topology")
     parser.add_argument("--seed", type=int, default=42)
     parser.add_argument("--early_stopping_patience", type=int, default=20)
     parser.add_argument("--plateau_patience", type=int, default=10)
     parser.add_argument("--results", type=str, default="results")
     parser.add_argument("--prefix", type=str, default="enhanced_")
-    parser.add_argument("--tensorboard", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--data_parallel", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--tensorboard", action="store_true",
+                        help="mirror the metrics to TensorBoard under run_dir/tensorboard")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="split every batch over the ranks of the process group "
+                        "(one process per card under torchrun)")
     parser.add_argument("--resume_from", type=str, default=None,
                         help="checkpoint directory to resume the full training state from")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
-    not_ported = _not_ported(args)
-    if not_ported:
-        parser.error(f"{', '.join(not_ported)}: not yet ported to PyTorch (see ROADMAP.md)")
     if args.gen_stream and not args.generate:
         parser.error("--gen_stream requires --generate")
     selffeed = args.gen_selffeed_scenes > 0
@@ -178,9 +187,28 @@ def main(argv=None) -> dict:
     from superresolution_for_pdes_tpu_torch.data.io import load_dataset
     from superresolution_for_pdes_tpu_torch.device import resolve_device
     from superresolution_for_pdes_tpu_torch.train import TrainConfig, train_model
+    from superresolution_for_pdes_tpu_torch.train.loop import train_dtype
     from superresolution_for_pdes_tpu_torch.utils.runs import create_run_dir
 
+    train_dtype(args.dtype)  # float32 or bfloat16, before any work
     device = resolve_device(args.device)
+    mesh = None
+    if args.multihost or args.data_parallel:
+        from superresolution_for_pdes_tpu_torch.parallel import data_mesh, initialize_multihost
+
+        topo = initialize_multihost(device=device)
+        if topo["backend"] == "nccl":
+            device = torch.device("cuda", topo["local_rank"])
+        if args.multihost:
+            print(f"multihost: process {topo['process_index']}/{topo['process_count']}, "
+                  f"{topo['global_devices']} global devices, backend {topo['backend']}")
+        if args.data_parallel:
+            if topo["backend"] is None:
+                print("data_parallel: no process group (not launched by torchrun): "
+                      "training as one process")
+            else:
+                mesh = data_mesh()
+    writer = mesh is None or mesh.get_local_rank() == 0
     config = TrainConfig(
         batch_size=args.batch_size,
         num_epochs=args.epochs,
@@ -197,6 +225,7 @@ def main(argv=None) -> dict:
         plateau_patience=args.plateau_patience,
         fused_epochs=args.fused_epochs,
         gen_every=args.gen_every,
+        log_tensorboard=args.tensorboard,
     )
 
     dataset_generator = None
@@ -236,13 +265,29 @@ def main(argv=None) -> dict:
     else:
         dataset = load_dataset(args.data, device=device)
 
-    run_dir = create_run_dir(args.results, args.prefix)
+    run_dir = _shared_run_dir(args, mesh, writer, create_run_dir)
     history = train_model(dataset, config, run_dir, resume_from=args.resume_from,
                           dataset_generator=dataset_generator if args.gen_stream else None,
-                          device=device)
+                          device=device, mesh=mesh)
+    if not writer:
+        return history
     print(f"best val loss {history['best_val_loss']:.6f} at epoch "
           f"{history['best_epoch'] + 1} ({history['num_epochs']} epochs); run dir {run_dir}")
     return history
+
+
+def _shared_run_dir(args, mesh, writer: bool, create_run_dir):
+    """The run dir, made by rank 0 and broadcast to every rank of the mesh."""
+    if mesh is None:
+        return create_run_dir(args.results, args.prefix) if writer else None
+    import torch.distributed as dist
+
+    box = [str(create_run_dir(args.results, args.prefix)) if writer else None]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(mesh.get_group(), 0),
+                               group=mesh.get_group())
+    from pathlib import Path
+
+    return Path(box[0])
 
 
 if __name__ == "__main__":

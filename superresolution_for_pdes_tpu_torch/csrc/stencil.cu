@@ -22,6 +22,14 @@
 //                                the gradient because the truncated L is
 //                                symmetric.
 //     u_mean, u_std and f_std are one value for the batch or one per slab.
+//     The loss kernels take pred, theta and f as float32 or bfloat16 (the
+//     element type T of the band template; the bf16 instantiations serve
+//     training with --dtype bfloat16): every value is widened to float32 as
+//     it is read, the statistics arrive as float32 (the wrapper widens bf16
+//     ones exactly), all arithmetic, the seed s, the partial sums and the
+//     loss are float32, in the same order for both types, and the backward
+//     writes the gradient in T, rounded to nearest even once at the store.
+//     A bf16 launch reads half the bytes of pred, theta and f.
 //     Design: a block owns a band of whole rows of one slab and stages it with
 //     one halo row above and below in shared memory. The band plus its halo
 //     is one contiguous run of the slab, so the load is a flat copy (float4
@@ -41,6 +49,9 @@
 //     the forward reads pred, theta, f and writes s (819 KB, 0.24 us) and the
 //     backward reads s and writes the gradient (410 KB, 0.12 us): the launch
 //     latency dominates, which is why the loss's elementwise tail is fused in.
+//     In bf16 at the r7bf16 batch (256, 40, 40) the forward reads 2.46 MB and
+//     writes the float32 seed (1.64 MB), the backward reads the seed and
+//     writes a bf16 gradient (2.46 MB).
 //
 // K3  srpde_jacobi -- replaces superresolution_for_pdes_tpu/ops/pallas_stencil.py
 //     pallas_jacobi_smooth (_jacobi_kernel): `iters` weighted-Jacobi sweeps
@@ -102,9 +113,11 @@
 // returns a cudaError_t as int (cudaGetLastError() after the launch) so the
 // Python wrapper can raise on a refused launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <type_traits>
 
 namespace {
 
@@ -127,6 +140,36 @@ __device__ __forceinline__ void store_v(float* p, const float (&x)[V]) {
   } else {
 #pragma unroll
     for (int j = 0; j < V; ++j) p[j] = x[j];
+  }
+}
+
+// bfloat16 rows: V values widened to float32 as they are read (8 bytes for V =
+// 4, so 8-byte alignment), and rounded to nearest even as they are stored.
+template <int V>
+__device__ __forceinline__ void load_v(const __nv_bfloat16* p, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&t.y));
+    x[0] = lo.x; x[1] = lo.y; x[2] = hi.x; x[3] = hi.y;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) x[j] = __bfloat162float(p[j]);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_v(__nv_bfloat16* p, const float (&x)[V]) {
+  if constexpr (V == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(x[0], x[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(x[2], x[3]);
+    uint2 t;
+    t.x = *reinterpret_cast<const unsigned int*>(&lo);
+    t.y = *reinterpret_cast<const unsigned int*>(&hi);
+    *reinterpret_cast<uint2*>(p) = t;
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p[j] = __float2bfloat16_rn(x[j]);
   }
 }
 
@@ -153,17 +196,21 @@ constexpr int kBandMaxSmem = 48 * 1024;  // the staged band, without opting in t
 
 enum Mode { kOperator, kLossForward, kLossBackward };
 
+// The fields' element type T is float, or __nv_bfloat16 for the loss kernels;
+// the band template casts the pointers.
 struct BandArgs {
-  const float* u;        // kOperator: u; kLossForward: pred_norm; kLossBackward: seed s
-  const float* theta;    // a field of u's shape, or null for theta_scalar
+  const void* u;         // kOperator: u (float); kLossForward: pred_norm (T);
+                         // kLossBackward: seed s (float)
+  const void* theta;     // T: a field of u's shape, or null for theta_scalar
   float theta_scalar;
-  const float* f;
+  const void* f;         // T
   const float* u_mean;   // the stats: [slab * stride], stride 0 (one value) or 1
   const float* u_std;
   const float* f_std;
   int u_mean_stride, u_std_stride, f_std_stride;
   const float* g_out;    // kLossBackward: the incoming 0-d gradient
-  float* out;            // theta L u; the seed s (null: none); grad_pred
+  void* out;             // theta L u (float); the seed s (float; null: none);
+                         // grad_pred (T)
   float* partial;        // kLossForward: one sum per block
   float count;           // N = batch n n
   int n, rows, bands;    // rows per band, bands per slab
@@ -171,9 +218,17 @@ struct BandArgs {
 };
 
 // One band of rows [r0, r0 + rows) of one slab: stage it with a one-row halo,
-// then every output point, V consecutive points (one row) per step.
-template <int kMode, int V>
+// then every output point, V consecutive points (one row) per step. T is the
+// element type of pred, theta and f (forward) or of the gradient (backward);
+// the staged band and all arithmetic are float32.
+template <int kMode, int V, typename T>
 __device__ __forceinline__ void band_body(const BandArgs& a) {
+  using In = std::conditional_t<kMode == kLossBackward, float, T>;    // the staged field
+  using Out = std::conditional_t<kMode == kLossForward, float, T>;    // what is stored
+  const In* u_in = static_cast<const In*>(a.u);
+  const T* theta_in = static_cast<const T*>(a.theta);
+  const T* f_in = static_cast<const T*>(a.f);
+  Out* out = static_cast<Out*>(a.out);
   extern __shared__ float4 band_smem[];  // (rows + 2) x n floats, 16-byte aligned
   float* band = reinterpret_cast<float*>(band_smem);
   __shared__ float warp_sums[kBandThreads / 32];
@@ -204,15 +259,15 @@ __device__ __forceinline__ void band_body(const BandArgs& a) {
   auto load_fields = [&](int k, float (&th)[V], float (&fv)[V]) {
     if (k >= points) return;
     if constexpr (kMode == kOperator) {
-      if (a.theta != nullptr) {
-        load_v<V>(a.theta + (out0 + k), th);
+      if (theta_in != nullptr) {
+        load_v<V>(theta_in + (out0 + k), th);
       } else {
 #pragma unroll
         for (int j = 0; j < V; ++j) th[j] = a.theta_scalar;
       }
     } else if constexpr (kMode == kLossForward) {
-      load_v<V>(a.theta + (out0 + k), th);
-      load_v<V>(a.f + (out0 + k), fv);
+      load_v<V>(theta_in + (out0 + k), th);
+      load_v<V>(f_in + (out0 + k), fv);
     }
   };
   float th[V] = {}, fv[V] = {};
@@ -227,7 +282,7 @@ __device__ __forceinline__ void band_body(const BandArgs& a) {
   for (int k = threadIdx.x * V; k < staged; k += blockDim.x * V) {
     float x[V];
     if (k >= lo && k < hi) {
-      load_v<V>(a.u + (g0 + k), x);
+      load_v<V>(u_in + (g0 + k), x);
 #pragma unroll
       for (int j = 0; j < V; ++j) {
         if constexpr (kMode == kLossForward) x[j] = x[j] * scale + shift;
@@ -264,7 +319,7 @@ __device__ __forceinline__ void band_body(const BandArgs& a) {
     if constexpr (kMode == kOperator) {
 #pragma unroll
       for (int j = 0; j < V; ++j) res[j] = th[j] * lap[j];
-      store_v<V>(a.out + g, res);
+      store_v<V>(out + g, res);
     } else if constexpr (kMode == kLossForward) {
 #pragma unroll
       for (int j = 0; j < V; ++j) {
@@ -272,11 +327,11 @@ __device__ __forceinline__ void band_body(const BandArgs& a) {
         acc = acc + r * r;
         res[j] = div_rn(th[j] * r, fs, inv_fs);
       }
-      if (a.out != nullptr) store_v<V>(a.out + g, res);
+      if (out != nullptr) store_v<V>(out + g, res);
     } else {
 #pragma unroll
       for (int j = 0; j < V; ++j) res[j] = out_scale * lap[j];
-      store_v<V>(a.out + g, res);
+      store_v<V>(out + g, res);
     }
 #pragma unroll
     for (int j = 0; j < V; ++j) {
@@ -302,17 +357,17 @@ __device__ __forceinline__ void band_body(const BandArgs& a) {
 
 template <int V>
 __global__ void __launch_bounds__(kBandThreads) pde_operator_kernel(const BandArgs a) {
-  band_body<kOperator, V>(a);
+  band_body<kOperator, V, float>(a);
 }
 
-template <int V>
+template <int V, typename T>
 __global__ void __launch_bounds__(kBandThreads) pde_loss_forward_kernel(const BandArgs a) {
-  band_body<kLossForward, V>(a);
+  band_body<kLossForward, V, T>(a);
 }
 
-template <int V>
+template <int V, typename T>
 __global__ void __launch_bounds__(kBandThreads) pde_loss_backward_kernel(const BandArgs a) {
-  band_body<kLossBackward, V>(a);
+  band_body<kLossBackward, V, T>(a);
 }
 
 // The loss forward's second launch, one block: the forward blocks' partial
@@ -354,7 +409,9 @@ bool band_plan(BandArgs& a, int batch, int n, int vec, dim3& grid, dim3& block, 
   return true;
 }
 
-// kLossForward also sums the partials into `loss` in a second launch.
+// kLossForward also sums the partials into `loss` in a second launch. T is the
+// loss kernels' element type (kOperator is float only).
+template <typename T>
 int launch_band(int mode, BandArgs a, int batch, int n, int vec, void* stream,
                 float* loss = nullptr) {
   dim3 grid, block;
@@ -367,15 +424,15 @@ int launch_band(int mode, BandArgs a, int batch, int n, int vec, void* stream,
     if (vec) pde_operator_kernel<4><<<grid, block, smem, s>>>(a);
     else pde_operator_kernel<1><<<grid, block, smem, s>>>(a);
   } else if (mode == kLossForward) {
-    if (vec) pde_loss_forward_kernel<4><<<grid, block, smem, s>>>(a);
-    else pde_loss_forward_kernel<1><<<grid, block, smem, s>>>(a);
+    if (vec) pde_loss_forward_kernel<4, T><<<grid, block, smem, s>>>(a);
+    else pde_loss_forward_kernel<1, T><<<grid, block, smem, s>>>(a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     pde_loss_forward_sum_kernel<<<1, kBandThreads, 0, s>>>(a.partial, static_cast<int>(grid.x),
                                                            a.count, loss);
   } else {
-    if (vec) pde_loss_backward_kernel<4><<<grid, block, smem, s>>>(a);
-    else pde_loss_backward_kernel<1><<<grid, block, smem, s>>>(a);
+    if (vec) pde_loss_backward_kernel<4, T><<<grid, block, smem, s>>>(a);
+    else pde_loss_backward_kernel<1, T><<<grid, block, smem, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -605,15 +662,17 @@ extern "C" int srpde_apply_operator(const float* theta, float theta_scalar, cons
   a.theta_scalar = theta_scalar;
   a.out = out;
   a.h2 = h2;
-  return launch_band(kOperator, a, batch, n, vec, stream);
+  return launch_band<float>(kOperator, a, batch, n, vec, stream);
 }
 
-extern "C" int srpde_pde_loss_forward(const float* pred, const float* theta, const float* f,
+// The loss forward: pred, theta and f are float32 (bf16 = 0) or bfloat16
+// (bf16 = 1); the statistics, the seed and the loss are float32.
+extern "C" int srpde_pde_loss_forward(const void* pred, const void* theta, const void* f,
                                       const float* u_mean, int u_mean_stride,
                                       const float* u_std, int u_std_stride,
                                       const float* f_std, int f_std_stride, float* seed,
                                       float* partial, float* loss, int batch, int n, float h2,
-                                      int vec, void* stream) {
+                                      int vec, int bf16, void* stream) {
   BandArgs a{};
   a.u = pred;
   a.theta = theta;
@@ -627,12 +686,15 @@ extern "C" int srpde_pde_loss_forward(const float* pred, const float* theta, con
   a.out = seed;
   a.partial = partial;
   a.h2 = h2;
-  return launch_band(kLossForward, a, batch, n, vec, stream, loss);
+  return bf16 ? launch_band<__nv_bfloat16>(kLossForward, a, batch, n, vec, stream, loss)
+              : launch_band<float>(kLossForward, a, batch, n, vec, stream, loss);
 }
 
+// The loss backward: the seed and u_std are float32; the gradient is written
+// as float32 (bf16 = 0) or bfloat16 (bf16 = 1).
 extern "C" int srpde_pde_loss_backward(const float* seed, const float* u_std, int u_std_stride,
-                                       const float* g_out, float* grad, int batch, int n,
-                                       float h2, int vec, void* stream) {
+                                       const float* g_out, void* grad, int batch, int n,
+                                       float h2, int vec, int bf16, void* stream) {
   BandArgs a{};
   a.u = seed;
   a.u_std = u_std;
@@ -640,7 +702,8 @@ extern "C" int srpde_pde_loss_backward(const float* seed, const float* u_std, in
   a.g_out = g_out;
   a.out = grad;
   a.h2 = h2;
-  return launch_band(kLossBackward, a, batch, n, vec, stream);
+  return bf16 ? launch_band<__nv_bfloat16>(kLossBackward, a, batch, n, vec, stream)
+              : launch_band<float>(kLossBackward, a, batch, n, vec, stream);
 }
 
 // K2 (iters = 0) or `iters` <= 3 K3 sweeps fused with it: r_out = f - theta

@@ -7,9 +7,9 @@ known PDE per level (``ml_physics``, whose finest level runs the stencil
 kernels on a card at n >= 160) against direct and 2x-stepped bilinear and
 bicubic interpolation of the 40^2 solve; per-resolution metrics in
 ``resolution_metrics.json``, and the log-log metric chart, error
-distributions and comparison panels where matplotlib is installed. Not
-ported: the tile axis split across devices (``tile_sharding``), which waits
-for the multi-GPU slice.
+distributions and comparison panels where matplotlib is installed.
+``tile_devices`` splits the cascades' tile batches over devices (the JAX
+package's ``tile_sharding``; ``cascade.upscale.TileSplit``).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 
 from superresolution_for_pdes_tpu_torch.cascade.multires import solve_multi_resolution
 from superresolution_for_pdes_tpu_torch.cascade.upscale import (
+    TileSplit,
     interpolation_upscale,
     ml_cascade,
     multi_level_interpolation_upscale,
@@ -82,6 +83,7 @@ def run_resolution_sweep(
     amp_levels=None,
     coarse_tile=20,
     device=None,
+    tile_devices=None,
 ) -> Dict:
     """One scene, every target resolution, every method. Returns ``{metrics,
     solutions, scene, k1, k2, stats_mode, amp_levels}``.
@@ -91,7 +93,8 @@ def run_resolution_sweep(
     a card) when not given; a given scene's tensors must be where the weights
     are. With ``amp_calibrate > 0`` and no ``amp_levels``, gains are fit first
     on self-generated scenes (``amp_mode``, ``amp_kind``, ``amp_bpo``,
-    ``amp_k``, ``amp_seed``)."""
+    ``amp_k``, ``amp_seed``). ``tile_devices`` splits the tiles of both
+    cascades' model calls over a device list."""
     resolutions = tuple(resolutions)
     if scene is None:
         scene = solve_multi_resolution(seed_or_generator, resolutions=resolutions,
@@ -103,12 +106,14 @@ def run_resolution_sweep(
         amp_levels = calibrate(model, variables, amp_calibrate, max(resolutions), amp_k,
                                amp_seed, amp_mode, amp_kind, amp_bpo, device, **cascade)
 
+    split = None if tile_devices is None else TileSplit(tile_devices)
     methods = {"ml_multi_level": ml_cascade(model, variables, scene, max(resolutions),
-                                            amp_levels=amp_levels, **cascade)}
+                                            amp_levels=amp_levels, tile_devices=split,
+                                            **cascade)}
     if refine_cycles > 0:
         methods["ml_physics"] = ml_cascade(model, variables, scene, max(resolutions),
-                                           refine_cycles=refine_cycles,
-                                           amp_levels=amp_levels, **cascade)
+                                           refine_cycles=refine_cycles, amp_levels=amp_levels,
+                                           tile_devices=split, **cascade)
     u40 = scene["u"][40]
     for res in resolutions:
         methods.setdefault("bilinear_direct", {})[res] = interpolation_upscale(u40, res, "bilinear")

@@ -8,7 +8,11 @@ of ``ops/pallas_stencil.py``).
   ``mean(((theta * L(pred * u_std + u_mean) - f) / f_std)^2)`` with the
   backward's seed ``theta * r / f_std`` in one call (the fused kernel and a
   one-block launch that sums its partials), and its gradient
-  ``u_std * L((2 g / N) * seed)`` in one launch.
+  ``u_std * L((2 g / N) * seed)`` in one launch. These two take ``pred``,
+  ``theta`` and ``f`` in float32 or bfloat16 (training with ``--dtype
+  bfloat16``): the values are widened to float32 as they are read, the
+  statistics, the arithmetic, the loss and the seed are float32, and the
+  gradient is written in ``pred``'s dtype. Every other kernel takes float32.
 * :func:`kernel_residual` (K2) -- ``f - theta * (S(u) - 4u) / h^2``, replacing
   ``pallas_residual``; ``theta`` may be a scalar, so the V-cycle's
   ``theta == -1`` call reads no theta field.
@@ -25,7 +29,9 @@ a CPU tensor it runs the plain twin (:func:`plain_apply_operator`,
 :func:`plain_residual`, :func:`plain_jacobi_smooth`,
 :func:`plain_smooth_residual`), which computes the same
 arithmetic in the same order with the port's ``ops/stencil.py``. Each wrapper
-counts its kernel launches in ``.launches``; the twins count nothing.
+counts its float32 kernel launches in ``.launches`` and its bfloat16 ones in
+``.launches_bf16`` (:func:`launch_counts` reads either); the twins count
+nothing.
 
 Leading axes are flattened into one batch axis, as the Pallas wrappers do.
 """
@@ -66,12 +72,33 @@ def _check_slabs(name: str, u: torch.Tensor, **others) -> None:
             raise ValueError(f"{name}: {key} is on {t.device}, u on {u.device}")
 
 
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
+def _check_cuda(name: str, *tensors: torch.Tensor,
+                dtypes: tuple[torch.dtype, ...] = (torch.float32,)) -> None:
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: the CUDA kernel takes {', '.join(map(str, dtypes))}, "
+                            f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: the CUDA kernel takes contiguous tensors")
+
+
+LOSS_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _loss_dtype(name: str, *tensors: torch.Tensor) -> torch.dtype:
+    """The one dtype of the loss kernels' fields (float32 or bfloat16)."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= set(LOSS_DTYPES):
+        raise TypeError(f"{name}: pred, theta and f must share one dtype of float32 and "
+                        f"bfloat16, got {sorted(map(str, dtypes))}")
+    return dtypes.pop()
+
+
+def _count_launch(fn, dtype: torch.dtype) -> None:
+    if dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def _check_device(name: str, u: torch.Tensor) -> None:
@@ -131,8 +158,8 @@ def _lib() -> _Lib:
     signatures = {
         "srpde_apply_operator": [ptr, f, ptr, ptr, i, i, f, i, ptr],
         "srpde_pde_loss_forward": [ptr, ptr, ptr, ptr, i, ptr, i, ptr, i, ptr, ptr, ptr,
-                                   i, i, f, i, ptr],
-        "srpde_pde_loss_backward": [ptr, ptr, i, ptr, ptr, i, i, f, i, ptr],
+                                   i, i, f, i, i, ptr],
+        "srpde_pde_loss_backward": [ptr, ptr, i, ptr, ptr, i, i, f, i, i, ptr],
         "srpde_residual": [ptr, f, ptr, ptr, ptr, ptr, i, i, f, f, i, i, ptr],
         "srpde_jacobi": [ptr, ptr, ptr, i, i, f, f, i, i, ptr],
         "srpde_max_fused_iters": [],
@@ -182,8 +209,13 @@ def plain_pde_residual_loss(pred: torch.Tensor, theta: torch.Tensor, f: torch.Te
 
     ``pred`` holds ``theta.numel()`` values in slabs of ``theta``'s last two
     axes (``(B, 1, H, W)`` against ``(B, H, W)``); each statistic is one value
-    or one per slab. Returns ``(loss, seed or None)``; differentiable.
+    or one per slab. Returns ``(loss, seed or None)``; differentiable. A
+    bfloat16 input or statistic is widened to float32 first, as the kernel
+    reads it: the loss and the seed are float32.
     """
+    pred, theta, f, u_mean, u_std, f_std = (
+        t.float() if t.dtype == torch.bfloat16 else t
+        for t in (pred, theta, f, u_mean, u_std, f_std))
     n = theta.shape[-1]
     theta3 = theta.reshape(-1, n, n)
     batch = theta3.shape[0]
@@ -196,15 +228,20 @@ def plain_pde_residual_loss(pred: torch.Tensor, theta: torch.Tensor, f: torch.Te
 
 
 def plain_pde_residual_loss_backward(seed: torch.Tensor, u_std: torch.Tensor,
-                                     g_out: torch.Tensor, h: float | None = None) -> torch.Tensor:
+                                     g_out: torch.Tensor, h: float | None = None,
+                                     dtype: torch.dtype | None = None) -> torch.Tensor:
     """Plain PyTorch gradient of the physics loss with respect to ``pred``:
     ``u_std * L((2 g_out / N) * seed)`` in ``seed``'s shape (the truncated
-    ``L`` is symmetric)."""
+    ``L`` is symmetric), computed in ``seed``'s dtype (float32 for a bfloat16
+    ``pred``: ``u_std`` is widened) and rounded once to ``dtype`` (``pred``'s,
+    default ``seed``'s)."""
+    if u_std.dtype == torch.bfloat16:
+        u_std = u_std.float()
     n = seed.shape[-1]
     s3 = seed.reshape(-1, n, n)
     c = (2.0 * g_out.reshape(())) / _count(seed)
     grad = _per_slab("u_std", u_std, s3.shape[0]) * plain_apply_operator(1.0, c * s3, h)
-    return grad.reshape(seed.shape)
+    return grad.reshape(seed.shape).to(dtype or seed.dtype)
 
 
 def plain_residual(theta, u: torch.Tensor, f: torch.Tensor,
@@ -266,11 +303,14 @@ def kernel_apply_operator(theta, u: torch.Tensor, h: float | None = None) -> tor
 
 
 def _stats_for_kernel(name: str, theta: torch.Tensor, batch: int, **stats: torch.Tensor):
-    """[(stat, stride)] for the kernel: stride 0 for one value, 1 per slab."""
+    """[(stat, stride)] for the kernel: stride 0 for one value, 1 per slab; a
+    bfloat16 statistic is widened to float32 (exactly)."""
     out = []
     for key, stat in stats.items():
         if stat.device != theta.device:
             raise ValueError(f"{name}: {key} is on {stat.device}, theta on {theta.device}")
+        if stat.dtype == torch.bfloat16:
+            stat = stat.float().contiguous()
         _check_cuda(name, stat)
         out.append((stat, 0 if _per_slab(key, stat, batch).ndim == 0 else 1))
     return out
@@ -283,7 +323,9 @@ def kernel_pde_loss_forward(pred: torch.Tensor, theta: torch.Tensor, f: torch.Te
     :func:`plain_pde_residual_loss` gives them. One call launches the fused
     kernel, which writes a partial sum per block into this call's scratch,
     and a one-block kernel that adds them in a fixed order: the same inputs
-    give the same bits, and no state is shared between calls or streams."""
+    give the same bits, and no state is shared between calls or streams.
+    ``pred``, ``theta`` and ``f`` share one dtype, float32 or bfloat16 (the
+    bf16 instantiation); the loss and the seed are float32."""
     name = "kernel_pde_loss_forward"
     _check_slabs(name, theta, f=f)
     if pred.numel() != theta.numel() or pred.shape[-2:] != theta.shape[-2:]:
@@ -293,46 +335,54 @@ def kernel_pde_loss_forward(pred: torch.Tensor, theta: torch.Tensor, f: torch.Te
         raise ValueError(f"{name}: pred is on {pred.device}, theta on {theta.device}")
     if theta.device.type == "cpu":
         return plain_pde_residual_loss(pred, theta, f, u_mean, u_std, f_std, h, seed)
+    dtype = _loss_dtype(name, pred, theta, f)
     _check_device(name, theta)
-    _check_cuda(name, pred, theta, f)
+    _check_cuda(name, pred, theta, f, dtypes=LOSS_DTYPES)
     n, batch = theta.shape[-1], _batch(theta)
     (um, um_s), (us, us_s), (fs, fs_s) = _stats_for_kernel(
         name, theta, batch, u_mean=u_mean, u_std=u_std, f_std=f_std)
-    loss = torch.empty((), dtype=theta.dtype, device=theta.device)
-    partial = torch.empty(batch * n, dtype=theta.dtype, device=theta.device)  # >= blocks
-    s = torch.empty_like(theta) if seed else None
+    f32 = dict(dtype=torch.float32, device=theta.device)
+    loss = torch.empty((), **f32)
+    partial = torch.empty(batch * n, **f32)  # >= blocks
+    s = torch.empty(theta.shape, **f32) if seed else None
     vec = _vec(n, pred, theta, f, *([s] if seed else []))
     with _on(theta):
         code = _lib().pde_loss_forward(
             _ptr(pred), _ptr(theta), _ptr(f), _ptr(um), um_s, _ptr(us), us_s, _ptr(fs), fs_s,
             _ptr(s), _ptr(partial), _ptr(loss), batch, n, float(_h2(n, h)), vec,
-            _stream(theta))
+            int(dtype == torch.bfloat16), _stream(theta))
     _raise_on(name, code)
-    kernel_pde_loss_forward.launches += 1
+    _count_launch(kernel_pde_loss_forward, dtype)
     return loss, s
 
 
 def kernel_pde_loss_backward(seed: torch.Tensor, u_std: torch.Tensor, g_out: torch.Tensor,
-                             h: float | None = None) -> torch.Tensor:
+                             h: float | None = None,
+                             dtype: torch.dtype | None = None) -> torch.Tensor:
     """K1's physics-loss backward: ``u_std * L((2 g_out / N) * seed)`` in one
-    launch, as :func:`plain_pde_residual_loss_backward` gives it."""
+    launch, as :func:`plain_pde_residual_loss_backward` gives it. The seed is
+    float32; the gradient is written in ``dtype`` (``pred``'s: float32, the
+    default, or bfloat16, the bf16 instantiation)."""
     name = "kernel_pde_loss_backward"
+    dtype = dtype or seed.dtype
     _check_slabs(name, seed)
     if g_out.numel() != 1 or g_out.device != seed.device:
         raise ValueError(f"{name}: g_out must be one value on {seed.device}")
     if seed.device.type == "cpu":
-        return plain_pde_residual_loss_backward(seed, u_std, g_out, h)
+        return plain_pde_residual_loss_backward(seed, u_std, g_out, h, dtype)
+    if dtype not in LOSS_DTYPES:
+        raise TypeError(f"{name}: the gradient is float32 or bfloat16, not {dtype}")
     _check_device(name, seed)
     _check_cuda(name, seed, g_out)
     n, batch = seed.shape[-1], _batch(seed)
     ((us, us_s),) = _stats_for_kernel(name, seed, batch, u_std=u_std)
-    grad = torch.empty_like(seed)
+    grad = torch.empty(seed.shape, dtype=dtype, device=seed.device)
     with _on(seed):
         code = _lib().pde_loss_backward(
             _ptr(seed), _ptr(us), us_s, _ptr(g_out), _ptr(grad), batch, n, float(_h2(n, h)),
-            _vec(n, seed, grad), _stream(seed))
+            _vec(n, seed, grad), int(dtype == torch.bfloat16), _stream(seed))
     _raise_on(name, code)
-    kernel_pde_loss_backward.launches += 1
+    _count_launch(kernel_pde_loss_backward, dtype)
     return grad
 
 
@@ -428,13 +478,6 @@ def kernel_smooth_residual(u: torch.Tensor, b: torch.Tensor, h: float | None = N
     return (u_out if fused else u), r
 
 
-kernel_apply_operator.launches = 0
-kernel_pde_loss_forward.launches = 0
-kernel_pde_loss_backward.launches = 0
-kernel_residual.launches = 0
-kernel_jacobi_smooth.launches = 0
-kernel_smooth_residual.launches = 0
-
 KERNELS = (kernel_apply_operator, kernel_pde_loss_forward, kernel_pde_loss_backward,
            kernel_residual, kernel_jacobi_smooth, kernel_smooth_residual)
 
@@ -442,7 +485,16 @@ KERNELS = (kernel_apply_operator, kernel_pde_loss_forward, kernel_pde_loss_backw
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+        fn.launches_bf16 = 0  # only the loss kernels have a bfloat16 instantiation
 
 
-def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNELS}
+def launch_counts(dtype: torch.dtype = torch.float32) -> dict[str, int]:
+    """Launches per wrapper since the last reset, of the float32 kernels or
+    (``dtype=torch.bfloat16``) of the bfloat16 instantiations."""
+    if dtype not in LOSS_DTYPES:
+        raise ValueError(f"launch_counts: float32 or bfloat16, not {dtype}")
+    bf16 = dtype == torch.bfloat16
+    return {fn.__name__: fn.launches_bf16 if bf16 else fn.launches for fn in KERNELS}
+
+
+reset_launch_counts()

@@ -12,6 +12,11 @@ and its gradient one launch
 the truncated ``L`` is symmetric, so the gradient with respect to ``pred`` is
 ``u_std * L((2 g / N) * theta * r / f_std)``. theta, f and the statistics are
 data and get no gradient.
+
+Under ``--dtype bfloat16`` the prediction, theta, f and per-sample statistics
+arrive in bfloat16: the kernels' bf16 instantiations read them as they are,
+compute in float32 and return a float32 loss, and the gradient comes back in
+bfloat16, as the prediction's dtype.
 """
 
 from __future__ import annotations
@@ -37,13 +42,13 @@ class _PdeResidualLoss(torch.autograd.Function):
         ctx.backward_fn = kernel_pde_loss_backward if use_kernel else plain_pde_residual_loss_backward
         loss, seed = forward(pred.contiguous(), theta, f, u_mean, u_std, f_std)
         ctx.save_for_backward(seed, u_std)
-        ctx.pred_shape = pred.shape
+        ctx.pred_shape, ctx.pred_dtype = pred.shape, pred.dtype
         return loss
 
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         seed, u_std = ctx.saved_tensors
-        grad = ctx.backward_fn(seed, u_std, g.contiguous())
+        grad = ctx.backward_fn(seed, u_std, g.contiguous(), dtype=ctx.pred_dtype)
         return grad.reshape(ctx.pred_shape), None, None, None, None, None, None
 
 

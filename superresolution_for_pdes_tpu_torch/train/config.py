@@ -3,10 +3,9 @@ defaults and ``config.json`` as the JAX package.
 
 Defaults are the published run: batch 32, <=500 epochs, AdamW lr 2e-4 /
 weight decay 1e-4, plateau LR (factor 0.5, patience 10, min 1e-6), early
-stopping 20, val split 0.2, grad clip 1.0, stratified split. The port does not
-run ``dtype`` other than float32, ``log_tensorboard`` or ``fused_epochs > 1``
-yet; ``train_model`` raises on them. ``mesh_shape`` is read by neither
-package.
+stopping 20, val split 0.2, grad clip 1.0, stratified split. ``dtype`` is
+``float32`` or ``bfloat16`` (``train_model`` raises on any other).
+``mesh_shape`` is read by neither package.
 """
 
 from __future__ import annotations

@@ -1,6 +1,8 @@
 """Metrics logging (port of ``train/metrics.py``): per-epoch scalars appended
-to ``metrics.jsonl``, and a best-effort loss-curve plot (skipped without
-matplotlib)."""
+to ``metrics.jsonl`` and, with ``tensorboard=True``, mirrored to TensorBoard
+event files under ``run_dir/tensorboard`` through
+``torch.utils.tensorboard.SummaryWriter``; and a best-effort loss-curve plot
+(skipped without matplotlib)."""
 
 from __future__ import annotations
 
@@ -10,15 +12,37 @@ from typing import Any, Dict, Optional
 
 
 class MetricsLogger:
-    def __init__(self, run_dir: str | Path):
+    """Appends ``{"step", **scalars}`` to ``metrics.jsonl``. TensorBoard is
+    best-effort, as in the JAX package: where ``SummaryWriter`` does not
+    import, the run goes on and one line says that TensorBoard is not
+    written."""
+
+    def __init__(self, run_dir: str | Path, tensorboard: bool = False):
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
         self.path = self.run_dir / "metrics.jsonl"
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError as exc:
+                print(f"TensorBoard is not written: torch.utils.tensorboard does not import "
+                      f"({exc})")
+            else:
+                self._tb = SummaryWriter(log_dir=str(self.run_dir / "tensorboard"))
 
     def log(self, step: int, scalars: Dict[str, Any]) -> None:
         record = {"step": step, **{k: float(v) for k, v in scalars.items()}}
         with self.path.open("a") as fh:
             fh.write(json.dumps(record) + "\n")
+        if self._tb is not None:
+            for key, value in scalars.items():
+                self._tb.add_scalar(key, float(value), step)
+
+    def close(self) -> None:
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None
 
 
 def read_metrics(run_dir: str | Path) -> list[dict]:

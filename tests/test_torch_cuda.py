@@ -1,10 +1,11 @@
 """PyTorch port on an NVIDIA card: the hand-written stencil kernels against
 their plain twins (K2 and the fused pre-smooth and residual at every sweep
 count, aligned and misaligned), K1's adjoint, the fused physics-loss kernels (forward,
-backward, determinism, concurrent streams, launch counts), and the V-cycle with and
-without the kernels, and CG with K1 as its matvec. Skipped without a
-card; on one, run ``python -m pytest --noconftest -q tests/test_torch_cuda.py``
-(the suite's conftest imports JAX, which the card's machine need not have)."""
+backward, determinism, concurrent streams, launch counts) in float32 and in
+bfloat16, and the V-cycle with and without the kernels, and CG with K1 as its
+matvec. Skipped without a card; on one, run
+``python -m pytest --noconftest -q tests/test_torch_cuda.py`` (the suite's
+conftest imports JAX, which the card's machine need not have)."""
 
 import pytest
 import torch
@@ -216,6 +217,67 @@ def test_pde_residual_loss_launches_one_kernel_each_way(gen):
     loss, ref_loss = float(loss.detach()), float(ref_loss.detach())
     assert abs(loss - ref_loss) <= 1e-6 * abs(ref_loss)
     _close(x.grad, ref.grad)
+
+
+BF16_STEP = 2.0 ** -8  # one bf16 step, relative to max|x|
+
+
+def _misaligned_like(t):
+    """A copy of ``t`` whose data starts one element past an aligned address
+    (the kernels' scalar path, for any dtype)."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("per_sample", [False, True])
+@pytest.mark.parametrize("shape", [(256, 40, 40), (32, 160, 160), (3, 41, 41)])
+def test_bf16_fused_loss_matches_twin(shape, per_sample, gen):
+    """The bf16 instantiations (bf16 pred, theta, f and, per sample, bf16
+    statistics): the float32 loss within 1e-6 relative and the float32 seed
+    within TOL of the twins', the bf16 gradient within one bf16 step; bf16
+    launches are counted apart from float32 ones."""
+    pred, theta, f, stats = _loss_data(shape, per_sample, gen)
+    pred, theta, f = (t.bfloat16() for t in (pred, theta, f))
+    if per_sample:
+        stats = tuple(t.bfloat16() for t in stats)
+    g = torch.tensor(0.7, device="cuda")
+    ref_loss, ref_seed = sk.plain_pde_residual_loss(pred, theta, f, *stats)
+    ref_grad = sk.plain_pde_residual_loss_backward(ref_seed, stats[1], g, dtype=torch.bfloat16)
+    assert ref_loss.dtype == ref_seed.dtype == torch.float32 and ref_grad.dtype == torch.bfloat16
+    sk.reset_launch_counts()
+    for p in (pred, _misaligned_like(pred)):
+        loss, seed = sk.kernel_pde_loss_forward(p, theta, f, *stats)
+        grad = sk.kernel_pde_loss_backward(seed, stats[1], g, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert loss.dtype == seed.dtype == torch.float32 and grad.dtype == torch.bfloat16
+        assert abs(float(loss) - float(ref_loss)) <= 1e-6 * abs(float(ref_loss))
+        _close(seed, ref_seed)
+        err = float((grad.float() - ref_grad.float()).abs().max())
+        assert err <= BF16_STEP * float(ref_grad.float().abs().max())
+    assert sk.launch_counts(torch.bfloat16)["kernel_pde_loss_forward"] == 2
+    assert sk.launch_counts(torch.bfloat16)["kernel_pde_loss_backward"] == 2
+    assert sum(sk.launch_counts().values()) == 0  # no float32 launch
+
+
+def test_bf16_loss_through_autograd_and_mixed_dtypes(gen):
+    pred, theta, f, (u_mean, u_std, f_std) = _loss_data((32, 40, 40), True, gen)
+    stats = NormStats(u_mean=u_mean.bfloat16(), u_std=u_std.bfloat16(),
+                      f_mean=u_mean.bfloat16(), f_std=f_std.bfloat16(),
+                      theta_mean=torch.zeros_like(u_mean), theta_std=torch.ones_like(u_std),
+                      theta_is_constant=torch.ones_like(u_std, dtype=torch.bool))
+    theta, f = theta.bfloat16(), f.bfloat16()
+    grads = []
+    for use_kernel in (True, False):
+        x = pred.bfloat16().requires_grad_(True)
+        pde_residual_loss(x, theta, f, stats, use_kernel=use_kernel).backward()
+        grads.append(x.grad.float())
+    assert x.grad.dtype == torch.bfloat16
+    torch.cuda.synchronize()
+    assert float((grads[0] - grads[1]).abs().max()) <= BF16_STEP * float(grads[1].abs().max())
+    with pytest.raises(TypeError, match="share one dtype"):
+        sk.kernel_pde_loss_forward(pred, theta, f, u_mean, u_std, f_std)
 
 
 @pytest.mark.parametrize("shape", SHAPES)

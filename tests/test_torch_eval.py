@@ -167,6 +167,23 @@ def test_clis_freeze_and_evaluate_a_bundle(tmp_path, capsys):
 
 
 def test_eval_clis_reject_unported_flags(tmp_path, capsys):
-    with pytest.raises(SystemExit):
-        resolution_comparison.main(["--shard_tiles", "--device", "cpu", "--out", str(tmp_path)])
-    assert "not yet ported" in capsys.readouterr().err
+    """``--shard_tiles``, once refused, splits each model call's tiles over the
+    visible devices: with ``--device cpu`` one part, the unsplit sweep bit for
+    bit (``tests/test_torch_shard_tiles.py`` splits over two)."""
+    from superresolution_for_pdes_tpu_torch.deploy import save_bundle
+    from superresolution_for_pdes_tpu_torch.models import AttentionUNet
+    from torch_port_helpers import TINY
+
+    experts = [AttentionUNet(in_channels=5, **TINY,
+                             generator=torch.Generator().manual_seed(i)).state_dict()
+               for i in range(2)]
+    bundle = save_bundle(tmp_path / "bundle", {"name": "attention_unet", "in_channels": 5,
+                                               **TINY}, experts, coarse_tile=(20, 40))
+    argv = ["--bundle", str(bundle), "--resolutions", "80", "160", "--device", "cpu"]
+    split = resolution_comparison.main([*argv, "--shard_tiles", "--out", str(tmp_path / "a")])
+    assert "split over 1 device(s): cpu" in capsys.readouterr().out
+    plain = resolution_comparison.main([*argv, "--out", str(tmp_path / "b")])
+    assert split["metrics"] == plain["metrics"]
+    for name, by_res in plain["solutions"].items():
+        for res, field in by_res.items():
+            assert torch.equal(split["solutions"][name][res], field), (name, res)

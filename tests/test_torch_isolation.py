@@ -20,15 +20,24 @@ bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
                                     "superresolution_for_pdes_tpu"))
 print(len(names), ",".join(bad))
+print(",".join(names))
 """
+
+# modules of the last slice, each covered by the walk above
+NEW_MODULES = ("parallel", "parallel.data", "parallel.mesh", "parallel.multihost",
+               "parallel.online", "utils.profiling", "native")
 
 
 def test_port_imports_no_jax():
-    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
-                         text=True, timeout=120, check=True).stdout.split()
-    count, bad = int(out[0]), out[1] if len(out) > 1 else ""
-    assert count >= 49, count  # every module of the port was imported
+    lines = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+                           text=True, timeout=120, check=True).stdout.splitlines()
+    head = lines[0].split()
+    count, bad = int(head[0]), head[1] if len(head) > 1 else ""
+    assert count >= 56, count  # every module of the port was imported
     assert bad == "", f"the port pulled in {bad}"
+    names = set(lines[1].split(","))
+    missing = [m for m in NEW_MODULES if f"superresolution_for_pdes_tpu_torch.{m}" not in names]
+    assert not missing, missing
 
 
 def test_entry_points_raise_without_a_card(tmp_path):
@@ -67,7 +76,13 @@ def test_entry_points_raise_without_a_card(tmp_path):
     )
     from superresolution_for_pdes_tpu_torch.data.io import load_dataset
     from superresolution_for_pdes_tpu_torch.deploy import load_bundle, run_bundle
+    from superresolution_for_pdes_tpu_torch.parallel import (
+        calibration_stats,
+        initialize_multihost,
+        make_online_train_step,
+    )
     from superresolution_for_pdes_tpu_torch.train import TrainConfig, train_model
+    from superresolution_for_pdes_tpu_torch.utils.profiling import device_trace
 
     model = AttentionUNet(in_channels=5)
     calls = (
@@ -98,6 +113,14 @@ def test_entry_points_raise_without_a_card(tmp_path):
         lambda: evaluate_out_of_sample(model, None, 0, n_samples=2),
         lambda: run_generalization_grid(model, None, 0, n_samples=2),
         lambda: run_single_example(model, None, 0, (80,), (8.0, 12.0), "tile"),
+        initialize_multihost,
+        lambda: make_online_train_step(model, torch.optim.AdamW(model.parameters()), None, 4),
+        lambda: calibration_stats(0, n_samples=4),
+        lambda: resolution_comparison.main(["--bundle", str(tmp_path), "--shard_tiles",
+                                            "--out", str(tmp_path)]),
+        lambda: train.main(["--generate", "--data_parallel", "--multihost", "--epochs", "1",
+                            "--results", str(tmp_path)]),
+        lambda: device_trace(tmp_path).__enter__(),
     )
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -4,8 +4,6 @@ per-sample stats, physics weight 0.3), AdamW with global-norm clipping
 against the optax chain, and tiny CPU runs of ``train_model`` and of the
 ``generate_data`` and ``train`` CLIs, resume included."""
 
-from types import SimpleNamespace
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -252,27 +250,72 @@ def test_clis_generate_train_and_resume(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("cli,argv", [
-    (train_cli, ["--fused_epochs", "2"]),
     (train_cli, ["--gen_selffeed_scenes", "4"]),
-    (train_cli, ["--data_parallel"]),
-    (train_cli, ["--multihost"]),
-    (train_cli, ["--tensorboard"]),
-    (train_cli, ["--dtype", "bfloat16"]),
     (gen_cli, ["--n_selffeed_scenes", "2"]),
 ])
 def test_unported_flags_raise(cli, argv, capsys):
-    """Each flag the port does not run raises; the self-fed counts without a
-    teacher raise the JAX package's error."""
+    """The self-fed counts without a teacher raise the JAX package's error
+    (every train flag runs now: ``test_train_flags_run_on_the_cpu``)."""
     with pytest.raises(SystemExit):
         cli.main([*argv, "--device", "cpu"])
     expected = {"--gen_selffeed_scenes": "requires --gen_selffeed_model",
-                "--n_selffeed_scenes": "requires --selffeed_model"}.get(argv[0], "not yet ported")
+                "--n_selffeed_scenes": "requires --selffeed_model"}[argv[0]]
     assert expected in capsys.readouterr().err
+
+
+def _tiny_cli_train(tmp_path, *flags, model="attention_unet", epochs=2):
+    """A CPU run of the train CLI at tiny counts (the CLI builds the model at
+    full width): 8 + 8 streamed samples, batch 8."""
+    return train_cli.main(["--generate", "--gen_stream", "--gen_standard", "8",
+                           "--gen_subdomain", "8", "--batch_size", "8", "--epochs", str(epochs),
+                           "--model", model, "--results", str(tmp_path), "--device", "cpu",
+                           *flags])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--fused_epochs", "2"],
+    ["--data_parallel"],
+    ["--multihost"],
+    ["--tensorboard"],
+    ["--dtype", "bfloat16", "--physics_weight", "0.3", "--normalization", "per_sample",
+     "--scale_channels"],
+])
+def test_train_flags_run_on_the_cpu(argv, tmp_path, capsys):
+    """Each train option the port once refused runs a tiny CPU job: fused
+    chunks, data parallelism and the topology without a process group (the
+    world is this process), TensorBoard events, bfloat16 (float32
+    checkpoints)."""
+    history = _tiny_cli_train(tmp_path, *argv)
+    assert history["num_epochs"] == 2 and np.isfinite(history["train_loss"]).all()
+    assert np.isfinite(history["val_loss"]).all()
+    out = capsys.readouterr().out
+    run = history["run_dir"]
+    if argv[0] == "--fused_epochs":
+        assert np.isnan(history["regen_seconds"]).all()  # not timed apart inside a chunk
+    elif argv[0] == "--data_parallel":
+        assert "training as one process" in out
+    elif argv[0] == "--multihost":
+        assert "multihost: process 0/1, 1 global devices" in out
+    elif argv[0] == "--tensorboard":
+        assert list((run / "tensorboard").glob("events.out.tfevents.*"))
+    else:
+        state = load_model_state(run, "final_model")
+        assert {v.dtype for v in state.values() if v.is_floating_point()} == {torch.float32}
+        assert history["train_loss"][0] != history["train_loss"][1]
+
+
+def test_train_rejects_dtypes_other_than_float32_and_bfloat16(tmp_path):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        _tiny_cli_train(tmp_path, "--dtype", "float16")
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        loop.train_dtype("float64")
+    assert loop.train_dtype("bfloat16") == torch.bfloat16
 
 
 @pytest.mark.parametrize("model,flags", [("attention_unet", []), ("attention_unet_wide", []),
                                          ("resnet", [])])
-def test_train_accepts_every_model_the_registry_builds(model, flags):
-    args = SimpleNamespace(fused_epochs=0, data_parallel=False, multihost=False,
-                           tensorboard=False, dtype="float32", model=model)
-    assert train_cli._not_ported(args) == flags
+def test_train_accepts_every_model_the_registry_builds(model, flags, tmp_path):
+    """Every registry model trains through the CLI (one tiny CPU epoch)."""
+    history = _tiny_cli_train(tmp_path, *flags, model=model, epochs=1)
+    assert history["num_epochs"] == 1 and np.isfinite(history["val_loss"]).all()
+    assert type(history["model"]).__name__ == {"resnet": "PDEResNet"}.get(model, "AttentionUNet")
