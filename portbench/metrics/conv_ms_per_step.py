@@ -1,0 +1,14 @@
+"""Device milliseconds of the model's convolutions per train step, forward and backward: kernels
+launched under a convolution operation (or, unlinked, named as cuDNN's), in
+the traced window that records the host's operations."""
+
+from portbench.metrics._kernels import is_convolution
+
+LAYER = "models (models/unet.py, models/resnet.py; cuDNN convolutions)"
+
+
+def read(r):
+    if r.unit != "step" or r.ops_units == 0:
+        return None
+    ms = r.ops.device_seconds(is_convolution) * 1e3
+    return ms / r.ops_units if ms > 0 else None
