@@ -27,6 +27,7 @@ import torch
 
 from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
 from superresolution_for_pdes_tpu_torch.solver.dst import sine_basis
+from superresolution_for_pdes_tpu_torch.utils.profiling import span
 
 N_OCTAVES = 12
 
@@ -105,18 +106,20 @@ def band_gains(pred: torch.Tensor, truth: torch.Tensor, bands_per_octave: int = 
 
 def apply_level_correction(field: torch.Tensor, gains) -> torch.Tensor:
     """Apply a scalar (0-d), radial (1-d) or log-grid (2-d) correction."""
-    gains = torch.as_tensor(gains, device=field.device)
-    if gains.ndim == 0:
-        return field * gains
-    n = field.shape[-1]
-    bpo = gains.shape[0] // N_OCTAVES
-    if gains.ndim == 1:
-        idx = torch.as_tensor(radial_band_index(n, bpo), dtype=torch.long, device=field.device)
-        g = gains[idx]
-    else:
-        bi = torch.as_tensor(axis_band_index(n, bpo), dtype=torch.long, device=field.device)
-        g = gains[bi[:, None], bi[None, :]]
-    return dst2(dst2(field) * g.to(field.dtype))
+    with span("cascade.modal"):
+        gains = torch.as_tensor(gains, device=field.device)
+        if gains.ndim == 0:
+            return field * gains
+        n = field.shape[-1]
+        bpo = gains.shape[0] // N_OCTAVES
+        if gains.ndim == 1:
+            idx = torch.as_tensor(radial_band_index(n, bpo), dtype=torch.long,
+                                  device=field.device)
+            g = gains[idx]
+        else:
+            bi = torch.as_tensor(axis_band_index(n, bpo), dtype=torch.long, device=field.device)
+            g = gains[bi[:, None], bi[None, :]]
+        return dst2(dst2(field) * g.to(field.dtype))
 
 
 def fit_modal_gains(model, variables, scenes: Dict, target_resolution: int = 640,

@@ -38,6 +38,7 @@ scenes (the modal gains are :func:`~.modal.calibrate_modal`'s).
 from __future__ import annotations
 
 import copy
+import math
 import time
 from typing import Dict, Mapping, Optional, Sequence, Tuple
 
@@ -59,6 +60,7 @@ from superresolution_for_pdes_tpu_torch.data.normalization import (
 )
 from superresolution_for_pdes_tpu_torch.ops.resize import resize_align_corners
 from superresolution_for_pdes_tpu_torch.solver.multigrid import vcycle
+from superresolution_for_pdes_tpu_torch.utils.profiling import span
 
 STATS_MODES = ("oracle", "scene", "train", "tile")
 
@@ -151,10 +153,11 @@ def _refine(u: torch.Tensor, f: torch.Tensor, theta: torch.Tensor, cycles: int,
             use_kernels: bool | None = None) -> torch.Tensor:
     """``cycles`` Galerkin V-cycles of ``diag(theta) L u = f`` starting from the
     ML prediction (honest: only the level's inputs f and theta are used)."""
-    b = -(f / theta)
-    for _ in range(cycles):
-        u = vcycle(u, b, use_kernels=use_kernels)
-    return u
+    with span("cascade.refine", cycles):
+        b = -(f / theta)
+        for _ in range(cycles):
+            u = vcycle(u, b, use_kernels=use_kernels)
+        return u
 
 
 def _level_overlap(overlap, i: int) -> bool:
@@ -188,40 +191,41 @@ def _level_body(model, weights, current: torch.Tensor, f_next: torch.Tensor,
     axis)."""
     fine_tile = 2 * coarse_tile
     next_res = f_next.shape[-1]
-    if stats_kind == "per_tile":
-        stats = None
-    elif stats_kind == "precomputed":
-        stats = stats_source
-    else:  # "field": per-scene stats, shaped to broadcast over the tile axis
-        stats = NormStats.from_fields(stats_source.unsqueeze(-3), f_next.unsqueeze(-3),
-                                      theta_next.unsqueeze(-3), dims=(-2, -1))
-
-    def run_tiles(u_tiles, f_tiles, theta_tiles):
+    c_stride = coarse_tile // 2 if overlap else coarse_tile
+    per_axis = (current.shape[-1] - coarse_tile) // c_stride + 1
+    n_tiles = math.prod(current.shape[:-2]) * per_axis ** 2
+    with span("cascade.inputs", n_tiles):
+        if stats_kind == "per_tile":
+            stats = None
+        elif stats_kind == "precomputed":
+            stats = stats_source
+        else:  # "field": per-scene stats, shaped to broadcast over the tile axis
+            stats = NormStats.from_fields(stats_source.unsqueeze(-3), f_next.unsqueeze(-3),
+                                          theta_next.unsqueeze(-3), dims=(-2, -1))
+        if overlap:
+            u_tiles, f_tiles, theta_tiles = (
+                split_tiles_overlapping(current, coarse_tile, c_stride),
+                split_tiles_overlapping(f_next, fine_tile, 2 * c_stride),
+                split_tiles_overlapping(theta_next, fine_tile, 2 * c_stride))
+        else:
+            u_tiles, f_tiles, theta_tiles = (split_tiles(current, coarse_tile),
+                                             split_tiles(f_next, fine_tile),
+                                             split_tiles(theta_next, fine_tile))
         st = per_sample_stats(u_tiles, f_tiles, theta_tiles) if stats is None else stats
         x = make_model_inputs(u_tiles, f_tiles, theta_tiles, st,
                               fine_shape=(fine_tile, fine_tile),
                               scale_channels=model.in_channels > 3)
+    with span("cascade.model", n_tiles):
         if symmetrize:
             lead = x.shape[:-3]
             pred = _dihedral_apply(model, weights, x.reshape((-1,) + x.shape[-3:]), split)
             pred = pred.reshape(lead + pred.shape[-3:])
         else:
             pred = _model_forward(model, weights, x, split)
-        return st.denormalize_u(pred[..., 0, :, :])
-
-    if overlap:
-        c_stride = coarse_tile // 2
-        up_tiles = run_tiles(
-            split_tiles_overlapping(current, coarse_tile, c_stride),
-            split_tiles_overlapping(f_next, fine_tile, 2 * c_stride),
-            split_tiles_overlapping(theta_next, fine_tile, 2 * c_stride),
-        )
-        out = stitch_tiles_overlapping(up_tiles, next_res, 2 * c_stride)
-    else:
-        up_tiles = run_tiles(split_tiles(current, coarse_tile),
-                             split_tiles(f_next, fine_tile),
-                             split_tiles(theta_next, fine_tile))
-        out = stitch_tiles(up_tiles)
+    with span("cascade.stitch", n_tiles):
+        up_tiles = st.denormalize_u(pred[..., 0, :, :])
+        out = (stitch_tiles_overlapping(up_tiles, next_res, 2 * c_stride) if overlap
+               else stitch_tiles(up_tiles))
     if refine_cycles > 0:
         out = _refine(out, f_next, theta_next, refine_cycles, use_kernels)
     return out
@@ -295,7 +299,7 @@ def level_program(model: nn.Module, variables, i: int, current: torch.Tensor, da
                            source[sl] if kind == "field" else source, tile, ov, kind,
                            symmetrize, refine_cycles, use_kernels, split)
 
-    with torch.no_grad():
+    with torch.no_grad(), span("cascade.level", res):
         if current.ndim == 2:
             out = body(slice(None))
         else:
@@ -415,14 +419,15 @@ def ml_cascade(
     check_cascade_args(model, variables, stats_mode, train_stats)
     split = _tile_split(tile_devices)
     current = data["u"][start_resolution]
-    outs: Dict[int, torch.Tensor] = {}
-    for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
-        current = level_program(
-            model, variables, i, current, data, res, stats_mode, train_stats, coarse_tile,
-            overlap, symmetrize, refine_cycles,
-            None if amp_levels is None else amp_levels[i], use_kernels, scene_chunk, split)
-        outs[res] = current
-    return outs
+    with span("cascade", 1 if current.ndim == 2 else current.shape[0]):
+        outs: Dict[int, torch.Tensor] = {}
+        for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
+            current = level_program(
+                model, variables, i, current, data, res, stats_mode, train_stats, coarse_tile,
+                overlap, symmetrize, refine_cycles,
+                None if amp_levels is None else amp_levels[i], use_kernels, scene_chunk, split)
+            outs[res] = current
+        return outs
 
 
 def ml_multi_level_upscale(model, variables, data: Dict, target_resolution: int,

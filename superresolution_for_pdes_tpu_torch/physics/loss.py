@@ -30,6 +30,7 @@ from superresolution_for_pdes_tpu_torch.ops.stencil_kernels import (
     plain_pde_residual_loss,
     plain_pde_residual_loss_backward,
 )
+from superresolution_for_pdes_tpu_torch.utils.profiling import span
 
 
 class _PdeResidualLoss(torch.autograd.Function):
@@ -70,9 +71,10 @@ def pde_residual_loss(pred_norm: torch.Tensor, theta_fine: torch.Tensor, f_fine:
     for name, t in data.items():
         if t.requires_grad:
             raise ValueError(f"pde_residual_loss: {name} is data and takes no gradient")
-    args = tuple(t.contiguous() for t in data.values())
-    kernel = use_kernel is not False
-    if torch.is_grad_enabled() and pred_norm.requires_grad:
-        return _PdeResidualLoss.apply(pred_norm, *args, kernel)
-    forward = kernel_pde_loss_forward if kernel else plain_pde_residual_loss
-    return forward(pred_norm.contiguous(), *args, seed=False)[0]
+    with span("physics.loss"):
+        args = tuple(t.contiguous() for t in data.values())
+        kernel = use_kernel is not False
+        if torch.is_grad_enabled() and pred_norm.requires_grad:
+            return _PdeResidualLoss.apply(pred_norm, *args, kernel)
+        forward = kernel_pde_loss_forward if kernel else plain_pde_residual_loss
+        return forward(pred_norm.contiguous(), *args, seed=False)[0]

@@ -30,6 +30,7 @@ from superresolution_for_pdes_tpu_torch.ops.stencil_kernels import (
     kernel_jacobi_smooth,
     kernel_smooth_residual,
 )
+from superresolution_for_pdes_tpu_torch.utils.profiling import span
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,13 +113,14 @@ def vcycle(u: torch.Tensor, b: torch.Tensor, pre: int = 2, post: int = 2,
     stencil kernels (the pre-smooth fused with the residual, then K3). ``None`` enables them for CUDA tensors at
     ``n >= 160``, the switch the JAX package uses on the TPU.
     """
-    n = b.shape[-1]
-    if use_kernels is None:
-        use_kernels = b.is_cuda and n >= 160
-    sizes, levels, A_inv = _hierarchy(n, float(omega), b.dtype, b.device)
-    u = u.contiguous()
-    b = b.contiguous()
-    return _vcycle(u, b, sizes, levels, A_inv, 0, pre, post, omega, use_kernels)
+    with span("multigrid.vcycle"):
+        n = b.shape[-1]
+        if use_kernels is None:
+            use_kernels = b.is_cuda and n >= 160
+        sizes, levels, A_inv = _hierarchy(n, float(omega), b.dtype, b.device)
+        u = u.contiguous()
+        b = b.contiguous()
+        return _vcycle(u, b, sizes, levels, A_inv, 0, pre, post, omega, use_kernels)
 
 
 def mg_preconditioner(r: torch.Tensor, use_kernels: bool | None = None) -> torch.Tensor:

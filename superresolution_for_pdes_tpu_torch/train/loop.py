@@ -61,6 +61,7 @@ from superresolution_for_pdes_tpu_torch.train.checkpoint import (
 from superresolution_for_pdes_tpu_torch.train.config import TrainConfig
 from superresolution_for_pdes_tpu_torch.train.metrics import MetricsLogger, plot_history
 from superresolution_for_pdes_tpu_torch.train.schedule import EarlyStopping, ReduceLROnPlateau
+from superresolution_for_pdes_tpu_torch.utils.profiling import span
 
 Arrays = Dict[str, torch.Tensor]
 
@@ -151,11 +152,15 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, batch: Arrays
     tensor. Under ``dp`` the gradients are the group's mean before the clip."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    loss = batch_loss(model, batch, stats, physics_weight)
-    loss.backward()
-    dpar.all_reduce_gradients(model.parameters(), dp)
-    clip_by_global_norm_(model.parameters(), grad_clip)
-    optimizer.step()
+    with span("train.forward"):
+        loss = batch_loss(model, batch, stats, physics_weight)
+    with span("train.backward"):
+        loss.backward()
+    with span("train.clip"):
+        dpar.all_reduce_gradients(model.parameters(), dp)
+        clip_by_global_norm_(model.parameters(), grad_clip)
+    with span("train.optimizer"):
+        optimizer.step()
     return loss.detach()
 
 
@@ -189,12 +194,13 @@ def make_train_fns(model: nn.Module, optimizer: torch.optim.Optimizer, stats: No
                     noise_generator: Optional[torch.Generator] = None) -> torch.Tensor:
         total = torch.zeros((), device=idx_matrix.device)
         for idx in idx_matrix:
-            batch = {k: v[dpar.shard_rows(idx, dp)] for k, v in arrays.items()}
-            if coarse_noise_std > 0.0 and noise_generator is not None:
-                x = batch["x"]
-                x[:, 0] += coarse_noise_std * torch.randn(
-                    x[:, 0].shape, generator=noise_generator, dtype=x.dtype, device=x.device)
-            total += train_step(model, optimizer, batch, stats, physics_weight, grad_clip, dp)
+            with span("train.step", idx.shape[0]):
+                batch = {k: v[dpar.shard_rows(idx, dp)] for k, v in arrays.items()}
+                if coarse_noise_std > 0.0 and noise_generator is not None:
+                    x = batch["x"]
+                    x[:, 0] += coarse_noise_std * torch.randn(
+                        x[:, 0].shape, generator=noise_generator, dtype=x.dtype, device=x.device)
+                total += train_step(model, optimizer, batch, stats, physics_weight, grad_clip, dp)
         if dp is not None:
             total = dpar.all_reduce_sum(total, dp) / dp.world
         return total / idx_matrix.shape[0]

@@ -1,24 +1,112 @@
-"""Tracing and timing (port of ``utils/profiling.py``).
+"""Tracing: the program's spans and a ``torch.profiler`` trace.
+
+:func:`span` marks a phase of the program (a cascade level, a train step's
+backward) as a context manager. It records only while a ``torch.profiler``
+window is open: otherwise it hands back one shared no-op context, which
+allocates nothing and reads no clock. Under a profiler a span opens a
+record-function range of its name (``record_function``'s form written in C,
+``_RecordFunctionFast``: a tenth of its cost, and its timestamps within a
+microsecond of the span's own), so the profiler's own trace (and any Chrome
+trace) shows the program's phases and ties each device activity launched
+inside it to them, and appends a :class:`SpanRecord` to a bounded in-memory
+buffer: its name, its start and end on ``time.time_ns()`` (the Unix-epoch
+clock that the profiler's events carry too), its enclosing span, the
+outermost span of its request or step, its thread, and a work count.
+:func:`recorded_spans` reads the buffer, :func:`clear_spans` empties it; the
+profiler's trace is the export.
+
+Span names are fixed strings and never contain "conv": a reader that counts
+a convolution's kernels by the names of their launching operations would
+count a whole phase.
 
 :func:`device_trace` records a ``torch.profiler`` trace (CPU and, on a card,
-CUDA activity) and writes it as a Chrome trace under ``log_dir``;
-:func:`timed` and :func:`time_fn` are wall-clock timers, the latter
-synchronizing the device of its outputs (JAX's ``block_until_ready``);
-:class:`ThroughputCounter` accumulates items per second.
+CUDA activity) and writes it as a Chrome trace under ``log_dir``.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import os
+import threading
 import time
-from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Iterator
+from typing import Iterator, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from superresolution_for_pdes_tpu_torch.device import resolve_device
+
+SPAN_BUFFER = 65536  # records kept; the oldest go first
+
+
+class SpanRecord(NamedTuple):
+    """One closed span. ``index`` numbers spans in the order they opened;
+    ``parent`` is the enclosing span's ``index`` (``None`` for an outermost
+    span) and ``root`` the outermost span's, shared by every span of one
+    request or step."""
+    name: str
+    start_ns: int
+    end_ns: int
+    index: int
+    parent: Optional[int]
+    root: int
+    thread: int
+    n: Optional[int]
+
+
+_records: collections.deque = collections.deque(maxlen=SPAN_BUFFER)
+_open = threading.local()  # .stack: this thread's open spans, outermost first
+_numbers = itertools.count()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "n", "index", "parent", "root", "start_ns", "_range")
+
+    def __init__(self, name: str, n: Optional[int]):
+        self.name, self.n = name, n
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        self.index = next(_numbers)
+        self.parent = stack[-1].index if stack else None
+        self.root = stack[0].index if stack else self.index
+        stack.append(self)
+        self._range = torch._C._profiler._RecordFunctionFast(self.name)
+        self._range.__enter__()
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end_ns = time.time_ns()
+        self._range.__exit__(*exc)
+        _open.stack.pop()
+        _records.append(SpanRecord(self.name, self.start_ns, end_ns, self.index, self.parent,
+                                   self.root, threading.get_ident(), self.n))
+        return False
+
+
+def span(name: str, n: Optional[int] = None):
+    """A context manager marking the phase ``name`` (with a work count ``n``)
+    while a ``torch.profiler`` window is open; a shared no-op otherwise."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, n)
+
+
+def recorded_spans() -> List[SpanRecord]:
+    """The closed spans in the buffer, in the order they closed (a child
+    before its parent)."""
+    return list(_records)
+
+
+def clear_spans() -> None:
+    _records.clear()
 
 
 @contextlib.contextmanager
@@ -39,65 +127,3 @@ def device_trace(log_dir: str | Path = "results/trace", device=None) -> Iterator
             torch.cuda.synchronize(dev)
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
-
-
-@contextlib.contextmanager
-def timed(result: Dict[str, float], key: str) -> Iterator[None]:
-    """Wall-clock a block into ``result[key]`` (seconds). It synchronizes
-    nothing: a block that launches device work should end in a
-    synchronization."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        result[key] = time.perf_counter() - t0
-
-
-def synchronize(out) -> None:
-    """Wait for the device work behind every CUDA tensor in ``out`` (a tensor,
-    or a tuple, list or dict of them)."""
-    if isinstance(out, torch.Tensor):
-        if out.is_cuda:
-            torch.cuda.synchronize(out.device)
-    elif isinstance(out, dict):
-        for value in out.values():
-            synchronize(value)
-    elif isinstance(out, (list, tuple)):
-        for value in out:
-            synchronize(value)
-
-
-def time_fn(fn, *args, reps: int = 10, warmup: int = 1, **kwargs) -> float:
-    """Mean seconds per call of ``fn``, end to end (launches included), with
-    the outputs' devices synchronized after the warm-up and after the reps."""
-    for _ in range(warmup):
-        synchronize(fn(*args, **kwargs))
-    t0 = time.perf_counter()
-    out = None
-    for _ in range(reps):
-        out = fn(*args, **kwargs)
-    synchronize(out)
-    return (time.perf_counter() - t0) / reps
-
-
-@dataclass
-class ThroughputCounter:
-    """Accumulating items/sec counter (solves/sec, samples/sec, tiles/sec)."""
-
-    items: int = 0
-    seconds: float = 0.0
-    _t0: float | None = field(default=None, repr=False)
-
-    def start(self) -> None:
-        self._t0 = time.perf_counter()
-
-    def stop(self, items: int) -> None:
-        if self._t0 is None:
-            raise RuntimeError("stop() without start()")
-        self.seconds += time.perf_counter() - self._t0
-        self.items += items
-        self._t0 = None
-
-    @property
-    def per_second(self) -> float:
-        return self.items / self.seconds if self.seconds > 0 else 0.0

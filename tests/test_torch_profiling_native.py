@@ -1,8 +1,8 @@
-"""PyTorch port, ``utils/profiling.py`` (timers, throughput counter, and a
-``torch.profiler`` trace on the CPU) and ``native/`` (the float64 C++ oracle,
-built with ``g++`` at first use) against the JAX package's oracle, which is
-built from the same source with the same flags, and against the port's
-float64 DST solve."""
+"""PyTorch port, ``utils/profiling.py`` (a ``torch.profiler`` trace on the
+CPU; the spans are ``tests/test_torch_tracing.py``'s) and ``native/`` (the
+float64 C++ oracle, built with ``g++`` at first use) against the JAX
+package's oracle, which is built from the same source with the same flags,
+and against the port's float64 DST solve."""
 
 import json
 
@@ -13,35 +13,9 @@ import torch
 from superresolution_for_pdes_tpu_torch import native
 from superresolution_for_pdes_tpu_torch.ops.grid import forcing_term
 from superresolution_for_pdes_tpu_torch.solver.dst import solve_poisson_dst
-from superresolution_for_pdes_tpu_torch.utils.profiling import (
-    ThroughputCounter,
-    device_trace,
-    time_fn,
-    timed,
-)
+from superresolution_for_pdes_tpu_torch.utils.profiling import device_trace
 
 jax_native = pytest.importorskip("superresolution_for_pdes_tpu.native")
-
-
-def test_timers_and_counter():
-    """The port of ``tests/test_resume_and_profiling.py::test_timers_and_counter``."""
-    x = torch.ones(128, 128)
-
-    def f(x):
-        return x * 2 + 1
-
-    assert time_fn(f, x, reps=3) > 0
-    out = {}
-    with timed(out, "block"):
-        f(x)
-    assert out["block"] > 0
-    c = ThroughputCounter()
-    c.start()
-    f(x)
-    c.stop(128)
-    assert c.per_second > 0 and c.items == 128
-    with pytest.raises(RuntimeError, match="without start"):
-        c.stop(1)
 
 
 def test_device_trace_writes_a_chrome_trace_on_the_cpu(tmp_path):
