@@ -66,6 +66,13 @@ def _radial_segments(n: int, bands_per_octave: int) -> Tuple[np.ndarray, Tuple[i
 
 
 @functools.lru_cache(maxsize=None)
+def _index_on(index, n: int, bands_per_octave: int, device) -> torch.Tensor:
+    """A band index (:func:`radial_band_index` or :func:`axis_band_index`) as
+    a long tensor on ``device``, copied there once."""
+    return torch.as_tensor(index(n, bands_per_octave), dtype=torch.long, device=device)
+
+
+@functools.lru_cache(maxsize=None)
 def _axis_one_hot(n: int, bands_per_octave: int, dtype, device) -> torch.Tensor:
     """(n, 12 * bpo) one-hot map of each 1-D mode to its octave band."""
     nb = N_OCTAVES * bands_per_octave
@@ -105,7 +112,9 @@ def band_gains(pred: torch.Tensor, truth: torch.Tensor, bands_per_octave: int = 
 
 
 def apply_level_correction(field: torch.Tensor, gains) -> torch.Tensor:
-    """Apply a scalar (0-d), radial (1-d) or log-grid (2-d) correction."""
+    """Apply a scalar (0-d), radial (1-d) or log-grid (2-d) correction. The
+    band index of a shape is copied to the device once and kept there: a copy
+    from pageable host memory on every call would wait for the stream."""
     with span("cascade.modal"):
         gains = torch.as_tensor(gains, device=field.device)
         if gains.ndim == 0:
@@ -113,11 +122,9 @@ def apply_level_correction(field: torch.Tensor, gains) -> torch.Tensor:
         n = field.shape[-1]
         bpo = gains.shape[0] // N_OCTAVES
         if gains.ndim == 1:
-            idx = torch.as_tensor(radial_band_index(n, bpo), dtype=torch.long,
-                                  device=field.device)
-            g = gains[idx]
+            g = gains[_index_on(radial_band_index, n, bpo, field.device)]
         else:
-            bi = torch.as_tensor(axis_band_index(n, bpo), dtype=torch.long, device=field.device)
+            bi = _index_on(axis_band_index, n, bpo, field.device)
             g = gains[bi[:, None], bi[None, :]]
         return dst2(dst2(field) * g.to(field.dtype))
 

@@ -8,6 +8,8 @@ row-major order: tile ``[i][j]`` covers rows ``i*t:(i+1)*t`` and columns
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -51,7 +53,13 @@ def split_tiles_overlapping(field: torch.Tensor, tile: int, stride: int) -> torc
 
 
 def blend_weights(tile: int, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Separable tent (feathering) window, strictly positive, max 1."""
+    """Separable tent (feathering) window, strictly positive, max 1 (cached
+    per tile, dtype and device, so a stitch copies nothing from the host)."""
+    return _blend_weights_cached(tile, dtype, torch.device(device or "cpu"))
+
+
+@functools.lru_cache(maxsize=None)
+def _blend_weights_cached(tile: int, dtype, device) -> torch.Tensor:
     ramp = np.minimum(np.arange(tile) + 1, tile - np.arange(tile)).astype(np.float64)
     w = np.outer(ramp, ramp)
     return torch.as_tensor(w / w.max(), dtype=dtype, device=device)

@@ -46,6 +46,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from superresolution_for_pdes_tpu_torch.cascade.graphs import LEVEL_GRAPHS
 from superresolution_for_pdes_tpu_torch.cascade.modal import apply_level_correction
 from superresolution_for_pdes_tpu_torch.cascade.tiles import (
     split_tiles,
@@ -281,25 +282,34 @@ def level_program(model: nn.Module, variables, i: int, current: torch.Tensor, da
     batch runs ``scene_chunk`` scenes per model call (default
     :func:`default_scene_chunk`); ``tile_devices`` (a device list or a
     :class:`TileSplit`) splits each call's tiles over devices. Runs under
-    ``torch.no_grad()``; :func:`check_cascade_args` comes first."""
+    ``torch.no_grad()``; :func:`check_cascade_args` comes first.
+
+    One scene on a card, with its tiles on its own device, is replayed as a
+    CUDA graph from the third call with the same key on
+    (:mod:`~superresolution_for_pdes_tpu_torch.cascade.graphs`), with the
+    same bits; a scene batch, CPU tensors and a split over other devices run
+    eagerly."""
     split = _tile_split(tile_devices)
-    if stats_mode == "oracle":
-        source, kind = data["u"][res], "field"
-    elif stats_mode == "scene":
-        source, kind = current, "field"
-    elif stats_mode == "train":
-        source, kind = train_stats, "precomputed"
-    else:
-        source, kind = None, "per_tile"
     tile, ov = _level_tile(coarse_tile, i), _level_overlap(overlap, i)
-    f, theta = data["f"][res], data["theta"][res]
+    weights = _level_weights(variables, i)
+    inputs = (current, data["f"][res], data["theta"][res],
+              data["u"][res] if stats_mode == "oracle" else None)
 
-    def body(sl):
-        return _level_body(model, _level_weights(variables, i), current[sl], f[sl], theta[sl],
-                           source[sl] if kind == "field" else source, tile, ov, kind,
-                           symmetrize, refine_cycles, use_kernels, split)
+    def program(current, f, theta, oracle):
+        if stats_mode == "oracle":
+            source, kind = oracle, "field"
+        elif stats_mode == "scene":
+            source, kind = current, "field"
+        elif stats_mode == "train":
+            source, kind = train_stats, "precomputed"
+        else:
+            source, kind = None, "per_tile"
 
-    with torch.no_grad(), span("cascade.level", res):
+        def body(sl):
+            return _level_body(model, weights, current[sl], f[sl], theta[sl],
+                               source[sl] if kind == "field" else source, tile, ov, kind,
+                               symmetrize, refine_cycles, use_kernels, split)
+
         if current.ndim == 2:
             out = body(slice(None))
         else:
@@ -308,6 +318,15 @@ def level_program(model: nn.Module, variables, i: int, current: torch.Tensor, da
             parts = [body(slice(s, s + chunk)) for s in range(0, n, chunk)]
             out = parts[0] if len(parts) == 1 else torch.cat(parts)
         return out if amp is None else apply_level_correction(out, amp)
+
+    with torch.no_grad(), span("cascade.level", res):
+        read = [amp] + (list(vars(train_stats).values()) if stats_mode == "train" else [])
+        key = LEVEL_GRAPHS.key(model, weights, i, inputs,
+                               (stats_mode, tile, ov, symmetrize, refine_cycles, use_kernels),
+                               read, None if split is None else split.devices)
+        if key is None:
+            return program(*inputs)
+        return LEVEL_GRAPHS.run(key, i, program, inputs)
 
 
 def _tile_split(tile_devices) -> Optional[TileSplit]:
@@ -371,16 +390,20 @@ def warmup_cascade_stepwise(model: nn.Module, variables, data: Dict, target_reso
     the refine path will launch it on a card, and runs every level once on
     the first scene of ``data`` only (the caching allocator and cuDNN's plans
     warm): it costs 1/N of an N-scene pass of device work, where the JAX
-    package's warmup costs none.
+    package's warmup costs none. Where ``data`` is that one scene, on a card,
+    it runs twice, so that the levels are captured as CUDA graphs and the
+    timed pass replays them.
     """
     first = {key: {r: (v[:1] if v.ndim == 3 else v) for r, v in data[key].items()}
              for key in ("u", "f", "theta")}
-    if kwargs.get("refine_cycles", 0) > 0 and first["u"][start_resolution].is_cuda:
+    u0 = data["u"][start_resolution]
+    if kwargs.get("refine_cycles", 0) > 0 and u0.is_cuda:
         from superresolution_for_pdes_tpu_torch.ops.stencil_kernels import load_kernels
 
         load_kernels()
-    fields, _ = ml_cascade_stepwise(model, variables, first, target_resolution,
-                                    start_resolution=start_resolution, **kwargs)
+    for _ in range(2 if u0.is_cuda and (u0.ndim == 2 or len(u0) == 1) else 1):
+        fields, _ = ml_cascade_stepwise(model, variables, first, target_resolution,
+                                        start_resolution=start_resolution, **kwargs)
     _sync(fields[max(fields)])
 
 

@@ -497,4 +497,18 @@ def launch_counts(dtype: torch.dtype = torch.float32) -> dict[str, int]:
     return {fn.__name__: fn.launches_bf16 if bf16 else fn.launches for fn in KERNELS}
 
 
+def launch_tally() -> tuple[int, ...]:
+    """Every wrapper's float32 and bfloat16 launch counts, flat, in
+    :data:`KERNELS`' order (two tallies' difference is the launches between)."""
+    return tuple(n for fn in KERNELS for n in (fn.launches, fn.launches_bf16))
+
+
+def add_launches(delta: tuple[int, ...]) -> None:
+    """Advance the counts by a difference of two :func:`launch_tally` s: a
+    captured CUDA graph's replay runs the launches its capture counted."""
+    for fn, n, n_bf16 in zip(KERNELS, delta[::2], delta[1::2]):
+        fn.launches += n
+        fn.launches_bf16 += n_bf16
+
+
 reset_launch_counts()

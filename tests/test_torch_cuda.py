@@ -3,13 +3,17 @@ their plain twins (K2 and the fused pre-smooth and residual at every sweep
 count, aligned and misaligned), K1's adjoint, the fused physics-loss kernels (forward,
 backward, determinism, concurrent streams, launch counts) in float32 and in
 bfloat16, and the V-cycle with and without the kernels, and CG with K1 as its
-matvec. Skipped without a card; on one, run
+matvec; and the champion's cascade levels replayed as CUDA graphs against the
+eager levels, bit for bit. Skipped without a card; on one, run
 ``python -m pytest --noconftest -q tests/test_torch_cuda.py`` (the suite's
 conftest imports JAX, which the card's machine need not have)."""
 
 import pytest
 import torch
 
+from superresolution_for_pdes_tpu_torch.cascade.graphs import LEVEL_GRAPHS
+from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
+from superresolution_for_pdes_tpu_torch.models import AttentionUNet
 from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
 from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
 from superresolution_for_pdes_tpu_torch.physics.loss import pde_residual_loss
@@ -312,3 +316,155 @@ def test_smooth_residual_matches_twin_at_every_sweep_count(shape, gen):
             got_u, got_r = sk.kernel_smooth_residual(_misaligned(u), _misaligned(b), iters=iters)
             _close(got_u, ref_u)
             _close(got_r, ref_r)
+
+
+# ------------------------------------------- the cascade's levels as CUDA graphs
+CHAMPION = dict(stats_mode="tile", coarse_tile=(40, 80, 80), overlap=False)
+RESOLUTIONS = (80, 160, 320, 640)
+
+
+@pytest.fixture
+def champion(gen):
+    """The champion's full-width U-Net with four random per-level experts
+    and random (48, 48) grid gains on the card; the graph cache emptied
+    before and after."""
+    LEVEL_GRAPHS.clear()
+    model = AttentionUNet(in_channels=5).cuda().eval()
+    sds = [{k: v.cuda() for k, v in AttentionUNet(
+        in_channels=5, generator=torch.Generator().manual_seed(i)).state_dict().items()}
+        for i in range(4)]
+    gains = tuple(0.8 + 0.4 * torch.rand(48, 48, device="cuda", generator=gen)
+                  for _ in RESOLUTIONS)
+    yield model, sds, gains
+    LEVEL_GRAPHS.clear()
+
+
+def _scene(seed, lead=()):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"u": {40: torch.randn(*lead, 40, 40, device="cuda", generator=g)},
+            "f": {r: torch.randn(*lead, r, r, device="cuda", generator=g) for r in RESOLUTIONS},
+            "theta": {r: 0.5 + torch.rand(*lead, r, r, device="cuda", generator=g)
+                      for r in RESOLUTIONS}}
+
+
+def _serve(champion, scene, refine_cycles=0, sds=None):
+    model, own, gains = champion
+    return ml_cascade(model, own if sds is None else sds, scene, 640, amp_levels=gains,
+                      refine_cycles=refine_cycles, **CHAMPION)
+
+
+def _copy(sds):
+    return [{k: v.clone() for k, v in sd.items()} for sd in sds]
+
+
+def _equal(a, b):
+    torch.cuda.synchronize()
+    return sorted(a) == sorted(b) and all(torch.equal(a[r], b[r]) for r in a)
+
+
+@pytest.mark.parametrize("refine_cycles", [0, 2])
+def test_replayed_levels_equal_the_eager_ones_bit_for_bit(refine_cycles, champion):
+    """One scene three times: eager, eager and captured, replayed; every
+    level's field of each call equals the first's bit for bit. A second
+    scene replayed equals it run on a fresh copy of the weights (another
+    key, so eager)."""
+    scene = _scene(1)
+    eager = _serve(champion, scene, refine_cycles)
+    assert (LEVEL_GRAPHS.captures, LEVEL_GRAPHS.replays) == (0, 0)
+    captured = _serve(champion, scene, refine_cycles)
+    assert (LEVEL_GRAPHS.captures, LEVEL_GRAPHS.replays) == (4, 0)
+    replayed = _serve(champion, scene, refine_cycles)
+    assert (LEVEL_GRAPHS.captures, LEVEL_GRAPHS.replays) == (4, 4)
+    assert all(bool(torch.isfinite(v).all()) for v in eager.values())
+    assert _equal(captured, eager) and _equal(replayed, eager)
+    other = _scene(2)
+    replayed = _serve(champion, other, refine_cycles)
+    assert LEVEL_GRAPHS.replays == 8
+    fresh = _serve(champion, other, refine_cycles, sds=_copy(champion[1]))
+    assert (LEVEL_GRAPHS.captures, LEVEL_GRAPHS.replays) == (4, 8)
+    assert _equal(replayed, fresh) and not torch.equal(replayed[640], eager[640])
+
+
+def test_a_replay_reads_weights_updated_in_place(champion):
+    scene = _scene(3)
+    before = [_serve(champion, scene) for _ in range(3)][-1]
+    sds = champion[1]
+    name = next(k for k, v in sds[1].items() if v.ndim == 4)
+    sds[1][name].mul_(1.5)
+    replays = LEVEL_GRAPHS.replays
+    after = _serve(champion, scene)
+    assert LEVEL_GRAPHS.replays == replays + 4
+    assert _equal(after, _serve(champion, scene, sds=_copy(sds)))
+    assert torch.equal(after[80], before[80]) and not torch.equal(after[160], before[160])
+
+
+def test_a_replaced_state_dict_misses(champion):
+    """New weights for level 2 (another state_dict): that level runs eagerly,
+    the others replay, and the fields are those of the new weights."""
+    scene = _scene(4)
+    for _ in range(3):
+        _serve(champion, scene)
+    sds = list(champion[1])
+    sds[2] = _copy([sds[2]])[0]
+    sds[2][next(k for k, v in sds[2].items() if v.ndim == 4)].mul_(1.5)
+    captures, replays = LEVEL_GRAPHS.captures, LEVEL_GRAPHS.replays
+    got = _serve(champion, scene, sds=sds)
+    assert (LEVEL_GRAPHS.captures, LEVEL_GRAPHS.replays) == (captures, replays + 3)
+    assert _equal(got, _serve(champion, scene, sds=_copy(sds)))
+
+
+def test_a_batch_of_two_scenes_never_captures(champion):
+    scene = _scene(5, lead=(2,))
+    first = _serve(champion, scene)
+    for _ in range(2):
+        again = _serve(champion, scene)
+    assert (LEVEL_GRAPHS.captures, LEVEL_GRAPHS.replays) == (0, 0)
+    assert _equal(first, again)
+
+
+def test_a_replay_advances_the_launch_counters_as_an_eager_call(champion):
+    """The refined cascade's stencil launches (2 V-cycles at 160, 320 and
+    640: 6 fused, 6 K3), counted on an eager call and on a replay."""
+    scene = _scene(6)
+    sk.reset_launch_counts()
+    _serve(champion, scene, refine_cycles=2)
+    eager = sk.launch_counts()
+    assert eager["kernel_smooth_residual"] == eager["kernel_jacobi_smooth"] == 6
+    for calls in (1, 2):  # captured, then replayed
+        sk.reset_launch_counts()
+        _serve(champion, scene, refine_cycles=2)
+        assert sk.launch_counts() == eager
+    assert LEVEL_GRAPHS.replays == 4
+
+
+SCHEDULES = {
+    "overlap_symmetrize_tile": dict(overlap=True, symmetrize=True, stats_mode="tile"),
+    "scene_radial_gains": dict(overlap=(False, True), stats_mode="scene", gains="radial"),
+    "train_scalar_gains": dict(stats_mode="train", gains="scalar", refine_cycles=1),
+    "oracle": dict(stats_mode="oracle", coarse_tile=(40, 80)),
+}
+
+
+@pytest.mark.parametrize("schedule", sorted(SCHEDULES))
+def test_every_schedule_replays_bit_for_bit(schedule, gen):
+    """A TINY cascade to 160^2 on one scene under each stats mode, overlap,
+    symmetrize and gain kind: the replayed fields are the eager ones."""
+    LEVEL_GRAPHS.clear()
+    kw = dict(SCHEDULES[schedule])
+    model = AttentionUNet(in_channels=5, generator=torch.Generator().manual_seed(7),
+                          **torch_port_helpers.TINY).cuda()
+    scene = _scene(8)
+    scene["u"].update({r: torch.randn(r, r, device="cuda", generator=gen) for r in (80, 160)})
+    gains = kw.pop("gains", None)
+    if gains == "radial":
+        kw["amp_levels"] = [0.8 + 0.4 * torch.rand(48, device="cuda", generator=gen)
+                            for _ in range(2)]
+    elif gains == "scalar":
+        kw["amp_levels"] = [torch.tensor(1.1, device="cuda"), torch.tensor(0.9, device="cuda")]
+    if kw["stats_mode"] == "train":
+        kw["train_stats"] = NormStats.from_fields(scene["u"][80], scene["f"][80],
+                                                  scene["theta"][80])
+    outs = [ml_cascade(model, None, scene, 160, **kw) for _ in range(3)]
+    assert (LEVEL_GRAPHS.captures, LEVEL_GRAPHS.replays) == (2, 2)
+    assert _equal(outs[1], outs[0]) and _equal(outs[2], outs[0])
+    LEVEL_GRAPHS.clear()

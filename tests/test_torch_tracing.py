@@ -27,8 +27,8 @@ from torch_port_helpers import TINY
 PACKAGE = Path(profiling.__file__).resolve().parents[1]
 # every span the program opens, and what reads it (PERF.md section 3)
 SPAN_NAMES = ("cascade", "cascade.level", "cascade.inputs", "cascade.model", "cascade.stitch",
-              "cascade.refine", "cascade.modal", "multigrid.vcycle", "train.step",
-              "train.forward", "physics.loss", "train.backward", "train.clip",
+              "cascade.refine", "cascade.modal", "cascade.replay", "multigrid.vcycle",
+              "train.step", "train.forward", "physics.loss", "train.backward", "train.clip",
               "train.optimizer")
 
 
