@@ -43,7 +43,7 @@ def serve_readings(cell, seed: int, device) -> dict:
     drv, traffic = cell.driver, cell.traffic
     pool = inputs.scene_pool(weights.generator(seed, device, 3), traffic["pool_scenes"],
                              traffic["start"], traffic["target"], traffic["k_range"])
-    experts, gains = drv._experts(cell.config, seed, device)
+    experts, gains = drv._experts(cell, seed, device)
     order = np.random.default_rng(weights.derived_seed(seed, 4)).permutation(
         traffic["pool_scenes"])
     worst = 0.0

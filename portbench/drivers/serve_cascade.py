@@ -1,11 +1,12 @@
 """Serving scenes through the program's cascade, closed loop.
 
 Set-up: the configuration's per-level experts and modal gains are drawn on
-the card from the seed, saved as a bundle with the program's
-``deploy.save_bundle`` under ``TMPDIR`` and loaded back with
-``deploy.load_bundle`` (as ``upscale --bundle`` does); a pool of scenes is
-made on the card (``portbench.inputs``) and kept in pinned host memory; a few
-requests warm every shape the window runs.
+the card from the seed, saved as a bundle of the model family's registry
+entry (``program_config``) with the program's ``deploy.save_bundle`` under
+``TMPDIR`` and loaded back with ``deploy.load_bundle``, which builds the
+model with ``models.build_model`` (as ``upscale --bundle`` does); a pool of
+scenes is made on the card (``portbench.inputs``) and kept in pinned host
+memory; a few requests warm every shape the window runs.
 
 A request hands one scene from the pool (in a seeded order) to the card,
 runs ``cascade.upscale.ml_cascade`` with the loaded manifest's arguments
@@ -33,25 +34,18 @@ import torch
 from portbench import inputs, weights
 from portbench.harness import Phases
 from portbench.reference import cascade as ref_cascade
-from portbench.reference import models as ref_models
 
 UNIT = "scene"
 
 
-def _experts(config: Dict, seed: int, device):
-    serve = config["serve"]
-    experts = [weights.make_state_dict(config["architecture"], seed, device, tag=level)
+def _experts(cell, seed: int, device):
+    serve = cell.config["serve"]
+    experts = [weights.make_state_dict(cell.family, cell.config["architecture"], seed, device,
+                                       tag=level)
                for level in range(serve["experts"])]
     g = serve["gains"]
     gains = weights.make_gains(seed, serve["experts"], g["shape"], g["low"], g["high"], device)
     return experts, gains
-
-
-def model_config(arch: Dict) -> Dict:
-    """The program's registry entry and widths of ``arch``."""
-    keys = {"attention_unet": ("in_channels", "enc_features", "bridge_features", "head_features"),
-            "resnet": ("in_channels", "features", "num_blocks")}[arch["family"]]
-    return {"name": arch["family"], **{k: arch[k] for k in keys}}
 
 
 def setup(cell, seed: int, device) -> Dict:
@@ -60,10 +54,10 @@ def setup(cell, seed: int, device) -> Dict:
     config, traffic = cell.config, cell.traffic
     serve, arch = config["serve"], config["architecture"]
     clock = Phases()
-    experts, gains = _experts(config, seed, device)
+    experts, gains = _experts(cell, seed, device)
     bundle = tempfile.mkdtemp(prefix="portbench_bundle_")
     try:
-        save_bundle(bundle, model_config(arch), experts, amp_levels=gains,
+        save_bundle(bundle, cell.family.program_config(arch), experts, amp_levels=gains,
                     overlap=serve["overlap"], stats_mode=serve["stats_mode"],
                     coarse_tile=serve["coarse_tile"])
         model, variables, amp, manifest = load_bundle(bundle, device=device)
@@ -152,7 +146,7 @@ def check(state: Dict) -> Dict[str, float]:
     rng = np.random.default_rng(weights.derived_seed(seed, 5))
     picks = rng.choice(len(served), size=min(cell.traffic["check_requests"], len(served)),
                        replace=False)
-    experts, gains = _experts(cell.config, seed, dev)
+    experts, gains = _experts(cell, seed, dev)
     worst = 0.0
     for k in picks:
         i, fields = served[int(k)]
@@ -166,7 +160,7 @@ def reference_fields(cell, experts, gains, pool: Dict, i: int, device) -> Dict[i
     """The plain reference's cascade of pool scene ``i`` with the given
     experts and gains, at the precision the backends are set to."""
     arch, serve, traffic = cell.config["architecture"], cell.config["serve"], cell.traffic
-    runs = [lambda x, p=p: ref_models.forward(arch, p, x) for p in experts]
+    runs = [lambda x, p=p: cell.family.forward(arch, p, x) for p in experts]
     f = {r: v[i].to(device) for r, v in pool["f"].items()}
     theta = {r: v[i].to(device) for r, v in pool["theta"].items()}
     with torch.no_grad():

@@ -1,8 +1,10 @@
 """Back-to-back train steps through the program's training loop.
 
-Set-up: the configuration's model is built with the program's classes and
-given weights drawn on the card from the seed; the recipe's raw training set
-is made on the card (``portbench.inputs``); the program normalises it
+Set-up: the configuration's model is built with the program's
+``models.build_model`` from the model family's registry entry
+(``program_config``), as ``deploy.load_bundle`` builds it, and given weights
+drawn on the card from the seed; the recipe's raw training set is made on
+the card (``portbench.inputs``); the program normalises it
 (``train.loop.prepare_arrays``), builds AdamW and ``make_train_fns``'
 ``train_epoch``; the first ``checked_steps`` steps run through that same
 ``train_epoch``, one row of a seeded shuffle each, and what the check needs
@@ -27,25 +29,16 @@ import torch
 
 from portbench import inputs, weights
 from portbench.harness import Phases
-from portbench.reference import models as ref_models
 from portbench.reference import train as ref_train
 
 UNIT = "step"
-TRAINABLE = ("conv", "bias", "bn_weight", "bn_bias")
 
 
-def build_model(arch: Dict):
-    """The program's model of ``arch``."""
-    from superresolution_for_pdes_tpu_torch.models import AttentionUNet
-    from superresolution_for_pdes_tpu_torch.models.resnet import PDEResNet
+def build_model(family, arch: Dict):
+    """The program's model of ``arch``, of the model family ``family``."""
+    from superresolution_for_pdes_tpu_torch import models
 
-    if arch["family"] == "attention_unet":
-        return AttentionUNet(in_channels=arch["in_channels"],
-                             enc_features=tuple(arch["enc_features"]),
-                             bridge_features=arch["bridge_features"],
-                             head_features=tuple(arch["head_features"]))
-    return PDEResNet(in_channels=arch["in_channels"], features=arch["features"],
-                     num_blocks=arch["num_blocks"])
+    return models.build_model(**family.program_config(arch))
 
 
 def _rows(gen: torch.Generator, n: int, batch: int) -> torch.Tensor:
@@ -59,8 +52,8 @@ def setup(cell, seed: int, device) -> Dict:
 
     arch, train = cell.config["architecture"], cell.config["train"]
     clock = Phases()
-    model = build_model(arch).to(device)
-    model.load_state_dict(weights.make_state_dict(arch, seed, device))
+    model = build_model(cell.family, arch).to(device)
+    model.load_state_dict(weights.make_state_dict(cell.family, arch, seed, device))
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
     clock.lap("model")
     raw = inputs.training_set(weights.generator(seed, device, 6), train["data"])
@@ -154,13 +147,13 @@ def reference_steps(cell, seed: int, device, raw: Dict, rows: torch.Tensor,
     over ``rows`` (one step per row), in ``dtype`` at the precision the
     backends are set to; ``drop_half`` leaves out the second half of every
     batch."""
-    arch, train = cell.config["architecture"], cell.config["train"]
+    family, arch, train = cell.family, cell.config["architecture"], cell.config["train"]
     state = {k: v.to(dtype) if v.is_floating_point() else v
-             for k, v in weights.make_state_dict(arch, seed, device).items()}
+             for k, v in weights.make_state_dict(family, arch, seed, device).items()}
     raw = {k: v.to(dtype) for k, v in raw.items()}
-    kinds = {k: kind for k, _, kind in ref_models.layout(arch)}
-    params = {k: v.clone() for k, v in state.items() if kinds[k] in TRAINABLE}
-    buffers = {k: v for k, v in state.items() if kinds[k] not in TRAINABLE}
+    kinds = {k: kind for k, _, kind in family.layout(arch)}
+    params = {k: v.clone() for k, v in state.items() if kinds[k] in family.TRAINABLE}
+    buffers = {k: v for k, v in state.items() if kinds[k] not in family.TRAINABLE}
     start = {k: v.clone() for k, v in params.items()}
     set_stats = ref_train.dataset_stats(raw) if train["normalization"] == "dataset" else None
     opt = ref_train.AdamW(params, train["learning_rate"], train["weight_decay"])
@@ -168,8 +161,9 @@ def reference_steps(cell, seed: int, device, raw: Dict, rows: torch.Tensor,
     for s, row in enumerate(rows):
         row = row[: row.shape[0] // 2] if drop_half else row
         batch = ref_train.batch_arrays(raw, row, train, set_stats)
-        loss, grads = ref_train.step(arch, params, buffers, opt, batch,
-                                     train["physics_weight"], train["grad_clip"])
+        loss, grads = ref_train.step(lambda p, x: family.forward(arch, p, x, train=True),
+                                     params, buffers, opt, batch, train["physics_weight"],
+                                     train["grad_clip"])
         out["loss"].append(loss)
         if s == 0:
             out["grad"] = {k: float(g.norm()) for k, g in grads.items()}

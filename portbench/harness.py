@@ -5,6 +5,9 @@ Everything a cell needs is found by name under this folder:
 - ``workloads/<cell>.json``: the configuration, the traffic mix, the why, and
   the limit of each number the comparison reads;
 - ``configs/<config>.json``: the model's widths, precision and recipes;
+- ``families/<family>.py``: the configuration's model family (its
+  ``architecture.family``): the program's registry entry, the layout, the
+  plain reference and the FLOPs;
 - ``traffic/<traffic>.json``: the traffic's parameters and its ``driver``;
 - ``drivers/<driver>.py``: ``setup``, ``window``, ``traced``, ``check``;
 - ``metrics/<metric>.py``: a per-layer metric's ``read`` and ``LAYER``.
@@ -39,6 +42,7 @@ class Cell:
     traffic: Dict[str, Any]
     spec: Dict[str, Any]   # the cell's own file
     driver: Any            # its driver module
+    family: Any            # its configuration's model family module
 
     @property
     def limits(self) -> Dict[str, float]:
@@ -48,8 +52,9 @@ class Cell:
 @dataclasses.dataclass
 class Reading:
     """What a per-layer reader reads: the device's trace of a traced window
-    and the units of work (scenes or steps) done in it, and a second traced
-    window of the same work with the host's operations (``ops``, ``ops_units``)."""
+    and the units of work (scenes or steps) done in it, a second traced
+    window of the same work with the host's operations (``ops``,
+    ``ops_units``), and the cell's configuration, traffic and model family."""
     trace: Any
     units: int
     ops: Any
@@ -57,6 +62,7 @@ class Reading:
     unit: str
     config: Dict[str, Any]
     traffic: Dict[str, Any]
+    family: Any
 
 
 class Phases:
@@ -83,7 +89,8 @@ def load_cell(name: str, base: Path = HERE) -> Cell:
     config = _json(base / "configs" / f"{spec['config']}.json")
     traffic = _json(base / "traffic" / f"{spec['traffic']}.json")
     driver = load_module(base / "drivers" / f"{traffic['driver']}.py")
-    return Cell(name, config, traffic, spec, driver)
+    family = load_module(base / "families" / f"{config['architecture']['family']}.py")
+    return Cell(name, config, traffic, spec, driver, family)
 
 
 def load_module(path: Path):
@@ -162,7 +169,7 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t_start: float, devi
         linked, linked_units = tracing.record(lambda: cell.driver.traced(state), host_ops=True)
         attempted = units + linked_units
         reading = Reading(recorded, units, linked, linked_units, cell.driver.UNIT, cell.config,
-                          cell.traffic)
+                          cell.traffic, cell.family)
         for m in reported(benchmark, cell.name, per_layer=True):
             value = load_module(HERE / "metrics" / f"{m['name']}.py").read(reading)
             if value is not None:

@@ -1,6 +1,8 @@
 """Device milliseconds of the model's convolutions per train step, forward and backward: kernels
-launched under a convolution operation (or, unlinked, named as cuDNN's), in
-the traced window that records the host's operations."""
+launched under a convolution operation or, where no ATen operation launched
+them (a replayed CUDA graph's), named as cuDNN's convolution kernels
+(``_kernels.is_convolution``), in the traced window that records the host's
+operations."""
 
 from portbench.metrics._kernels import is_convolution
 

@@ -14,15 +14,16 @@ not kept. Nothing here imports the program.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 import torch.nn.functional as F
 
-from portbench.reference import models
 from portbench.reference.cascade import LOG_EPS, STD_FLOOR, THETA_CONSTANT_TOL
 
 Arrays = Dict[str, torch.Tensor]
+# a model family's forward in training mode: (tensors, input) -> prediction
+Model = Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor]
 
 
 def dataset_stats(raw: Arrays) -> Dict[str, torch.Tensor]:
@@ -89,9 +90,9 @@ def _slab(stat: torch.Tensor) -> torch.Tensor:
     return stat[:, None] if stat.ndim else stat
 
 
-def loss(arch: Dict, params: Dict[str, torch.Tensor], batch: Arrays,
+def loss(model: Model, params: Dict[str, torch.Tensor], batch: Arrays,
          physics_weight: float) -> torch.Tensor:
-    pred = models.forward(arch, params, batch["x"], train=True)
+    pred = model(params, batch["x"])
     total = torch.mean((pred - batch["y"]) ** 2)
     if physics_weight > 0.0:
         u = pred * _slab(batch["u_std"]) + _slab(batch["u_mean"])
@@ -124,12 +125,12 @@ class AdamW:
                 p.addcdiv_(self.m[k], denom, value=-self.lr / c1)
 
 
-def step(arch: Dict, params: Dict[str, torch.Tensor], buffers: Dict[str, torch.Tensor],
+def step(model: Model, params: Dict[str, torch.Tensor], buffers: Dict[str, torch.Tensor],
          opt: AdamW, batch: Arrays, physics_weight: float, grad_clip: float):
-    """One step of the trainable ``params`` in place (``buffers``: the rest of
-    the model's tensors): ``(loss, clipped gradients)``."""
+    """One step of the trainable ``params`` of ``model`` in place (``buffers``:
+    the rest of the model's tensors): ``(loss, clipped gradients)``."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    value = loss(arch, {**leaves, **buffers}, batch, physics_weight)
+    value = loss(model, {**leaves, **buffers}, batch, physics_weight)
     grads = dict(zip(leaves, torch.autograd.grad(value, list(leaves.values()))))
     norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads.values())).float()
     scale = 1.0 if float(norm) < grad_clip else grad_clip / float(norm)

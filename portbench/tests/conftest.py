@@ -30,19 +30,15 @@ def card():
     return torch.device("cuda", 0)
 
 
-TINY_UNET = {"enc_features": [8, 16, 32], "bridge_features": 64, "head_features": [8, 8]}
-TINY_RESNET = {"features": 8, "num_blocks": 2}
-
-
 def tiny_cell(name: str, base=None):
-    """The cell ``name`` at TINY widths and sizes: the same configuration
-    keys and traffic, a 160^2 target, a few scenes and samples."""
+    """The cell ``name`` at TINY widths (its model family's ``TINY``) and
+    sizes: the same configuration keys and traffic, a 160^2 target, a few
+    scenes and samples."""
     from portbench import harness
 
     cell = harness.load_cell(name, base) if base else harness.load_cell(name)
     config = copy.deepcopy(cell.config)
-    arch = config["architecture"]
-    arch.update(TINY_UNET if arch["family"] == "attention_unet" else TINY_RESNET)
+    config["architecture"].update(cell.family.TINY)
     if "train" in config:
         config["train"]["batch_size"] = 8
         data = config["train"]["data"]
@@ -54,7 +50,7 @@ def tiny_cell(name: str, base=None):
         traffic.update(target=160, pool_scenes=4, check_requests=3, warmup_requests=1)
     else:
         traffic.update(rows_per_call=2)
-    return harness.Cell(name, config, traffic, cell.spec, cell.driver)
+    return harness.Cell(name, config, traffic, cell.spec, cell.driver, cell.family)
 
 
 @pytest.fixture

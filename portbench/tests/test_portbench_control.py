@@ -18,7 +18,7 @@ def _small(name):
         traffic.update(target=160, pool_scenes=2, check_requests=2)
     else:
         config["train"] = {**config["train"], "batch_size": 8}
-    return harness.Cell(name, config, traffic, cell.spec, cell.driver)
+    return harness.Cell(name, config, traffic, cell.spec, cell.driver, cell.family)
 
 
 @pytest.mark.parametrize("name", ["champion_serve_scene", "champion_serve_refine2",

@@ -1,7 +1,7 @@
-"""The benchmark's counters of operations and bytes: the FLOP counter
-against ``torch.utils.flop_counter`` on the program's models at the cells'
-shapes (counted on the meta device), and the byte counters against the
-sizes the port's kernel records give."""
+"""The benchmark's counters of operations and bytes: the model families'
+FLOP counts against ``torch.utils.flop_counter`` on the program's models at
+the cells' shapes (counted on the meta device), and the byte counters
+against the sizes the port's kernel records give."""
 
 import pytest
 import torch
@@ -10,8 +10,8 @@ from torch.utils.flop_counter import FlopCounterMode
 from portbench import flops, harness
 from portbench.drivers.train_steps import build_model
 
-UNET = harness.load_cell("champion_serve_scene").config
-RESNET = harness.load_cell("resnet_train_b32").config
+UNET = harness.load_cell("champion_serve_scene")
+RESNET = harness.load_cell("resnet_train_b32")
 
 
 def _counted(model, x, backward: bool) -> int:
@@ -26,29 +26,30 @@ def _counted(model, x, backward: bool) -> int:
 
 @pytest.mark.parametrize("size", [80, 160])
 def test_unet_forward_flops_match_flop_counter(size):
-    arch = UNET["architecture"]
+    arch = UNET.config["architecture"]
     with torch.device("meta"):
-        model = build_model(arch).eval()
+        model = build_model(UNET.family, arch).eval()
         x = torch.empty(3, arch["in_channels"], size, size)
-    assert 3 * flops.forward(arch, size) == _counted(model, x, backward=False)
+    assert 3 * UNET.family.flops_forward(arch, size) == _counted(model, x, backward=False)
 
 
 def test_served_scene_is_931_6_gflop():
-    serve = UNET["serve"]
-    total = flops.served_scene(UNET["architecture"], 40, 640, serve["coarse_tile"])
+    serve = UNET.config["serve"]
+    total = flops.served_scene(UNET.family, UNET.config["architecture"], 40, 640,
+                               serve["coarse_tile"])
     assert flops.cascade_tiles(40, 640, serve["coarse_tile"]) == [(1, 80), (1, 160), (4, 160),
                                                                   (16, 160)]
     assert total == pytest.approx(931.6e9, rel=1e-4)
 
 
-@pytest.mark.parametrize("config, per_sample", [(UNET, 8.06e9), (RESNET, 5.67e9)])
-def test_train_step_flops_match_flop_counter(config, per_sample):
-    arch, size = config["architecture"], config["train"]["size"]
+@pytest.mark.parametrize("cell, per_sample", [(UNET, 8.06e9), (RESNET, 5.67e9)])
+def test_train_step_flops_match_flop_counter(cell, per_sample):
+    arch, size = cell.config["architecture"], cell.config["train"]["size"]
     with torch.device("meta"):
-        model = build_model(arch).train()
+        model = build_model(cell.family, arch).train()
         x = torch.empty(4, arch["in_channels"], size, size)
-    assert 4 * flops.train_step(arch, size) == _counted(model, x, backward=True)
-    assert flops.train_step(arch, size) == pytest.approx(per_sample, rel=1e-3)
+    assert 4 * cell.family.flops_train_step(arch, size) == _counted(model, x, backward=True)
+    assert cell.family.flops_train_step(arch, size) == pytest.approx(per_sample, rel=1e-3)
 
 
 def _reader(name):
@@ -66,7 +67,7 @@ def test_k1_loss_bytes_match_the_kernel_records():
 
 def test_stencil_bytes_match_the_kernel_records():
     work = _reader("stencil_roofline_pct.refine").scene_work
-    refine = UNET["serve"]["refine"]
+    refine = UNET.config["serve"]["refine"]
     one_cycle_640, _ = work({**refine, "kernel_min_n": 640}, 1, 320, 640)
     # K3 4.9 MB and the fused pre-smooth and residual 6.6 MB at (1, 640^2)
     assert one_cycle_640 == pytest.approx(4.9e6 + 6.6e6, rel=0.01)

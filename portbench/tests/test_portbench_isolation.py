@@ -1,7 +1,7 @@
 """What the benchmark runs imports neither JAX nor the JAX package (top-level
 module names compared whole: the port's name begins with the JAX package's),
-the reference imports nothing of the program, and ``run.py`` never falls
-back to the CPU."""
+the reference and the model families' files import nothing of the program,
+and ``run.py`` never falls back to the CPU."""
 
 import ast
 import subprocess
@@ -19,7 +19,7 @@ sys.path.insert(0, {root!r})
 from pathlib import Path
 from portbench import harness, repeat, trace, flops, inputs, weights, peaks
 here = Path({here!r})
-for folder in ("drivers", "metrics"):
+for folder in ("drivers", "metrics", "families"):
     for path in sorted((here / folder).glob("*.py")):
         harness.load_module(path)
 for cell in ("champion_serve_scene", "champion_train_b32"):
@@ -52,6 +52,8 @@ def _imports(path):
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module == "portbench":
+            yield from (f"portbench.{a.name}" for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             yield node.module or ""
 
@@ -63,13 +65,16 @@ def test_no_file_imports_jax_or_the_jax_package(path):
     assert not tops & set(harness.FORBIDDEN), path
 
 
-@pytest.mark.parametrize("path", sorted((ROOT / "portbench" / "reference").glob("*.py")),
-                         ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted((ROOT / "portbench" / "reference").glob("*.py"))
+                         + sorted((ROOT / "portbench" / "families").glob("*.py")),
+                         ids=lambda p: f"{p.parent.name}/{p.name}")
 def test_the_reference_imports_nothing_of_the_program(path):
     tops = {name.split(".")[0] for name in _imports(path)}
     assert tops <= {"__future__", "functools", "typing", "numpy", "torch", "portbench"}, tops
     inner = {name for name in _imports(path) if name.startswith("portbench")}
-    assert all(name.startswith("portbench.reference") for name in inner), inner
+    # a family's FLOPs take their pieces from portbench.flops, which imports nothing
+    assert all(name.startswith("portbench.reference") or name == "portbench.flops"
+               for name in inner), inner
 
 
 def test_run_without_a_card_exits_nonzero_and_prints_no_result():

@@ -7,34 +7,27 @@ import copy
 import pytest
 import torch
 
-from conftest import TINY_RESNET, TINY_UNET
 from portbench import harness, inputs, weights
 from portbench.drivers import train_steps
 from portbench.reference import cascade as ref
-from portbench.reference import models as ref_models
 
 CPU = torch.device("cpu")
 
 
-def _arch(cell, tiny):
-    arch = copy.deepcopy(harness.load_cell(cell).config["architecture"])
-    arch.update(tiny)
-    return arch
-
-
-@pytest.mark.parametrize("cell, tiny, size", [("champion_serve_scene", TINY_UNET, 32),
-                                              ("resnet_train_b32", TINY_RESNET, 24)])
+@pytest.mark.parametrize("cell, size", [("champion_serve_scene", 32), ("resnet_train_b32", 24)])
 @pytest.mark.parametrize("train", [False, True])
-def test_model_forward_matches_the_program(cell, tiny, size, train):
-    arch = _arch(cell, tiny)
-    state = weights.make_state_dict(arch, 11, CPU)
-    model = train_steps.build_model(arch)
+def test_model_forward_matches_the_program(cell, size, train):
+    resolved = harness.load_cell(cell)
+    family, arch = resolved.family, copy.deepcopy(resolved.config["architecture"])
+    arch.update(family.TINY)
+    state = weights.make_state_dict(family, arch, 11, CPU)
+    model = train_steps.build_model(family, arch)
     model.load_state_dict(state)
     model.train(train)
     x = torch.randn(3, arch["in_channels"], size, size, generator=torch.Generator().manual_seed(1))
     with torch.no_grad():
         got = model(x)
-    want = ref_models.forward(arch, state, x, train=train)
+    want = family.forward(arch, state, x, train=train)
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
 
 

@@ -18,7 +18,7 @@ def _reader():
 def _reading(unit="scene"):
     cell = harness.load_cell("champion_serve_scene" if unit == "scene" else "champion_train_b32")
     t = trace.Trace(window_s=1e-3, activities=[trace.Activity("k", 0.0, 500.0, True, ())])
-    return harness.Reading(t, 1, t, 1, unit, cell.config, cell.traffic)
+    return harness.Reading(t, 1, t, 1, unit, cell.config, cell.traffic, cell.family)
 
 
 def _span(name, start_us, index, parent):

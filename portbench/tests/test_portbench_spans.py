@@ -1,4 +1,4 @@
-"""The six span readers on a synthetic device trace and synthetic span lists:
+"""The five span readers on a synthetic device trace and synthetic span lists:
 the split between the two traced windows, host time per unit, the device's
 idle time inside spans, and nothing read where the program recorded no span
 (as at a commit without spans)."""
@@ -10,7 +10,7 @@ from superresolution_for_pdes_tpu_torch.utils import profiling
 from superresolution_for_pdes_tpu_torch.utils.profiling import SpanRecord
 
 A = trace.Activity
-SERVE = ("cascade_host_ms_per_scene", "cascade_idle_ms_per_scene", "refine_host_ms_per_scene")
+SERVE = ("cascade_host_ms_per_scene", "cascade_idle_ms_per_scene")
 TRAIN = ("train_host_ms_per_step", "train_idle_ms_per_step", "optimizer_host_ms_per_step")
 
 
@@ -35,7 +35,7 @@ def _span(name, start_us, end_us, index=0, parent=None, root=None):
 def _reading(unit, units=2):
     cell = harness.load_cell("champion_serve_refine2" if unit == "scene" else "champion_train_b32")
     t = _trace()
-    return harness.Reading(t, units, t, units, unit, cell.config, cell.traffic)
+    return harness.Reading(t, units, t, units, unit, cell.config, cell.traffic, cell.family)
 
 
 @pytest.fixture
@@ -55,7 +55,6 @@ def test_serve_readers_split_the_windows_and_intersect_the_gaps(spans):
     assert _reader("cascade_host_ms_per_scene").read(r) == pytest.approx((250 + 130) / 2 / 1e3)
     # gaps 100-150 and 200-400 inside 50-300 and 320-450: 50 + 100 + 80 us
     assert _reader("cascade_idle_ms_per_scene").read(r) == pytest.approx(230 / 2 / 1e3)
-    assert _reader("refine_host_ms_per_scene").read(r) == pytest.approx(60 / 2 / 1e3)
     assert all(_reader(name).read(r) is None for name in TRAIN)
 
 

@@ -2,11 +2,16 @@
 the comparison: the program loads them, the reference takes the same tensors
 (or makes them again from the seed).
 
-The law is the one ``chip_smoke.py`` phase 4 gives its experts: convolution
-weights Kaiming normal with fan_out (std ``sqrt(2 / (c_out k^2))``), biases
-0, BatchNorm scale 1 and shift 0, running means N(0, 0.1) and running
-variances U(0.5, 2). Convolution weights are one normal draw cut into
-tensors, the running statistics one draw each.
+A model family's layout (``portbench/families/<family>.py``) gives each
+tensor a kind. The shared kinds follow the law ``chip_smoke.py`` phase 4
+gives its experts: convolution weights Kaiming normal with fan_out (std
+``sqrt(2 / (c_out k^2))``), biases 0, BatchNorm scale 1 and shift 0, running
+means N(0, 0.1) and running variances U(0.5, 2), step counts 0. Convolution
+weights are one normal draw cut into tensors, the running statistics one
+draw each. A kind a family adds is drawn by the family's own law,
+``DRAWS[kind](generator, shapes, device)`` giving one tensor per shape in
+layout order, from a generator of its own (tag 8), so that the shared
+kinds' draws are the same whatever a family adds.
 """
 
 from __future__ import annotations
@@ -16,8 +21,6 @@ from typing import Dict
 
 import numpy as np
 import torch
-
-from portbench.reference.models import layout
 
 
 def derived_seed(seed: int, *tags: int) -> int:
@@ -29,11 +32,15 @@ def generator(seed: int, device, *tags: int) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(derived_seed(seed, *tags))
 
 
-def make_state_dict(arch: Dict, seed: int, device, tag: int = 0) -> Dict[str, torch.Tensor]:
-    """A state_dict of ``arch`` (a configuration's ``architecture``) drawn
-    from ``seed`` and ``tag`` on ``device``."""
+SHARED = ("conv", "bias", "bn_weight", "bn_bias", "running_mean", "running_var", "count")
+
+
+def make_state_dict(family, arch: Dict, seed: int, device,
+                    tag: int = 0) -> Dict[str, torch.Tensor]:
+    """A state_dict of ``arch`` (a configuration's ``architecture``, of the
+    model family ``family``) drawn from ``seed`` and ``tag`` on ``device``."""
     gen = generator(seed, device, 1, tag)
-    entries = layout(arch)
+    entries = family.layout(arch)
     convs = [(k, s) for k, s, kind in entries if kind == "conv"]
     flat = torch.randn(sum(math.prod(s) for _, s in convs), generator=gen, device=device)
     out, at = {}, 0
@@ -57,6 +64,17 @@ def make_state_dict(arch: Dict, seed: int, device, tag: int = 0) -> Dict[str, to
             out[key] = torch.full(shape, fill[kind], device=device)
         elif kind == "count":
             out[key] = torch.zeros((), dtype=torch.long, device=device)
+    added: Dict[str, list] = {}
+    for key, shape, kind in entries:
+        if kind not in SHARED:
+            added.setdefault(kind, []).append((key, shape))
+    if added:
+        own, draws = generator(seed, device, 8, tag), getattr(family, "DRAWS", {})
+        for kind, items in added.items():
+            if kind not in draws:
+                raise ValueError(f"{family.__file__} draws no tensors of kind {kind!r}")
+            out.update(zip((key for key, _ in items),
+                           draws[kind](own, [shape for _, shape in items], device)))
     return {key: out[key].contiguous() for key, _, _ in entries}
 
 
