@@ -42,14 +42,33 @@ def _load_model(path: Path, device):
                                       map_location=device)
         ns = restored.get("norm_stats")
         state, train_stats = restored["model"], None if ns is None else NormStats(**ns)
-    cfg = _run_config(path)
-    overrides = {}
-    if cfg.get("scale_channels"):
-        overrides["in_channels"] = 5
-    if cfg.get("model_norm", "batch") != "batch":
-        overrides["norm"] = cfg["model_norm"]
-    model = build_model(cfg.get("model", "attention_unet"), **overrides).to(device).eval()
+    model = build_model(**model_config(path)).to(device).eval()
     return model, state, train_stats
+
+
+def model_config(path) -> dict:
+    """The registry name and keyword arguments of the model that the run at
+    ``path`` (as :func:`resolve_model` takes it) trained, from its
+    ``config.json``: ``model`` (``attention_unet`` without one), 5 input
+    channels under ``scale_channels``, and ``model_norm`` where it is not
+    ``batch``. A bundle's ``model_config``."""
+    cfg = _run_config(Path(path))
+    out = {"name": cfg.get("model", "attention_unet")}
+    if cfg.get("scale_channels"):
+        out["in_channels"] = 5
+    if cfg.get("model_norm", "batch") != "batch":
+        out["norm"] = cfg["model_norm"]
+    return out
+
+
+def run_path(model_path: str | None, results_dir: str = "results") -> str:
+    """``model_path``, or the newest run under ``results_dir`` when it is None."""
+    if model_path is None:
+        from superresolution_for_pdes_tpu_torch.utils.runs import find_latest_run_dir
+
+        model_path = find_latest_run_dir(results_dir)
+        print(f"using latest run: {model_path}")
+    return model_path
 
 
 def resolve_model(model_path: str | None, results_dir: str = "results", device=None):
@@ -59,13 +78,9 @@ def resolve_model(model_path: str | None, results_dir: str = "results", device=N
     card). ``train_stats`` is the checkpoint's normalization statistics, or
     None when it has none."""
     from superresolution_for_pdes_tpu_torch.device import resolve_device
-    from superresolution_for_pdes_tpu_torch.utils.runs import find_latest_run_dir
 
     device = resolve_device(device)
-    if model_path is None:
-        model_path = find_latest_run_dir(results_dir)
-        print(f"using latest run: {model_path}")
-    path = Path(model_path)
+    path = Path(run_path(model_path, results_dir))
     if not path.exists():
         raise FileNotFoundError(f"model not found at path: {path}")
     return _load_model(path, device)
@@ -116,11 +131,7 @@ def resolve_expert(model_path: str | None, results_dir: str = "results", device=
     :func:`resolve_model` loads it; the normalization mode (``"dataset"`` or
     ``"per_sample"``) comes from the run's ``config.json`` (``"dataset"``
     without one), so that inputs are built as the expert was trained."""
-    if model_path is None:
-        from superresolution_for_pdes_tpu_torch.utils.runs import find_latest_run_dir
-
-        model_path = find_latest_run_dir(results_dir)
-        print(f"using latest run: {model_path}")
+    model_path = run_path(model_path, results_dir)
     model, state, _ = resolve_model(model_path, results_dir, device)
     return model, state, _run_config(Path(model_path)).get("normalization", "dataset")
 

@@ -118,10 +118,11 @@ def _assemble_and_run(args, scene, device):
     calibration, optional bundle, then the cascade on ``scene``."""
     from superresolution_for_pdes_tpu_torch.cascade.modal import calibrate_modal
     from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
-    from superresolution_for_pdes_tpu_torch.cli import resolve_level_experts
+    from superresolution_for_pdes_tpu_torch.cli import model_config, resolve_level_experts, run_path
     from superresolution_for_pdes_tpu_torch.deploy import save_bundle
 
-    model, variables, _ = resolve_level_experts(args.model_path, args, device=device)
+    model_path = run_path(args.model_path)
+    model, variables, _ = resolve_level_experts(model_path, args, device=device)
     overlap = (tuple(bool(v) for v in args.overlap_levels)
                if args.overlap_levels is not None else False)
     coarse_tile = (tuple(int(v) for v in args.tile_levels)
@@ -134,10 +135,8 @@ def _assemble_and_run(args, scene, device):
             stats_mode=args.stats_mode, overlap=overlap, bands_per_octave=args.amp_bpo,
             kind="grid", coarse_tile=coarse_tile, device=device)
     if args.save_bundle is not None:
-        cfg = {"name": "attention_unet"}
-        if model.in_channels > 3:
-            cfg["in_channels"] = model.in_channels
-        save_bundle(args.save_bundle, cfg, variables, amp_levels=amp_levels, overlap=overlap,
+        save_bundle(args.save_bundle, model_config(model_path), variables,
+                    amp_levels=amp_levels, overlap=overlap,
                     stats_mode=args.stats_mode, coarse_tile=coarse_tile,
                     extra={"amp_k": list(args.amp_k), "amp_calibrate": args.amp_calibrate})
         print(f"bundle saved to {args.save_bundle}")

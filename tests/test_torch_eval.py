@@ -166,6 +166,38 @@ def test_clis_freeze_and_evaluate_a_bundle(tmp_path, capsys):
     assert "bundle saved to" in out and "ml+physics MAE" in out and "advantage" in out
 
 
+@pytest.mark.parametrize("model, config", [
+    ("attention_unet", {"scale_channels": True}),
+    ("resnet", {"model_norm": "group"}),
+    ("swinir", {"scale_channels": True}),
+])
+def test_a_frozen_bundle_names_the_runs_model(model, config, tmp_path, monkeypatch):
+    """``upscale --save_bundle`` writes the run's own registry entry: its
+    ``model``, 5 input channels under ``scale_channels``, its ``model_norm``;
+    a default U-Net run's manifest is as it always was. (The cascade itself
+    is replaced: the manifest is written before it runs.)"""
+    from superresolution_for_pdes_tpu_torch.cascade import upscale as cascade_upscale
+    from superresolution_for_pdes_tpu_torch.models import build_model
+
+    run = tmp_path / "run"
+    overrides = {"in_channels": 5} if config.get("scale_channels") else {}
+    if "model_norm" in config:
+        overrides["norm"] = config["model_norm"]
+    save_checkpoint(run / "best_model", {"model": build_model(model, **overrides).state_dict()})
+    cfg = {"model": model, **config}
+    if model == "attention_unet":
+        del cfg["model"]  # a run written before runs named their model
+    (run / "config.json").write_text(json.dumps(cfg))
+    monkeypatch.setattr(cascade_upscale, "ml_cascade", lambda *a, **k: {})
+    bundle = tmp_path / "bundle"
+    upscale.main(["--model_path", str(run), "--save_bundle", str(bundle), "--target", "80",
+                  "--out", str(tmp_path / "out"), "--device", "cpu"])
+    written = json.loads((bundle / "manifest.json").read_text())["model_config"]
+    assert list(written.items()) == [("name", model), *overrides.items()]
+    served, variables, _, _ = load_bundle(bundle, device="cpu")
+    served.load_state_dict(variables)  # the architecture the weights were trained as
+
+
 def test_eval_clis_reject_unported_flags(tmp_path, capsys):
     """``--shard_tiles``, once refused, splits each model call's tiles over the
     visible devices: with ``--device cpu`` one part, the unsplit sweep bit for

@@ -2,8 +2,9 @@
 as CUDA graphs, and the cache's bookkeeping. On the CPU no level is ever
 captured; the cache's sightings, cascades and eviction are held here with a
 stand-in for the capture, and the capture itself on the card
-(``tests/test_torch_cuda.py``). Also the modal correction's band index kept
-on the device, and the stencil launch tally a replay advances."""
+(``tests/test_torch_cuda.py``; SwinIR's levels here, marked ``cuda``). Also
+the modal correction's band index kept on the device, and the stencil launch
+tally a replay advances."""
 
 import pytest
 import torch
@@ -11,7 +12,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from superresolution_for_pdes_tpu_torch.cascade import graphs, modal
 from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
-from superresolution_for_pdes_tpu_torch.models import AttentionUNet
+from superresolution_for_pdes_tpu_torch.models import AttentionUNet, SwinIR
 from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
 from superresolution_for_pdes_tpu_torch.utils.profiling import clear_spans, recorded_spans
 
@@ -152,3 +153,40 @@ def test_a_cascade_holds_at_most_max_levels(cpu_cache):
     (cascade,) = cpu_cache._cascades.values()
     assert len(cascade.levels) == graphs.MAX_LEVELS
     assert cpu_cache.replays == graphs.MAX_LEVELS
+
+
+@pytest.mark.cuda
+def test_swinir_levels_replay_bit_for_bit(level_graphs):
+    """On a card: a one-scene cascade of a published-width SwinIR with four
+    random per-level experts to 320^2, three times: eager, eager and
+    captured, replayed; the replayed fields equal the eager ones bit for bit
+    (the shift masks, made on the device at the first sighting, are read in
+    place by the graphs). Run with ``python -m pytest --noconftest -q
+    tests/test_torch_graphs.py -k swinir``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a level is captured only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = SwinIR(in_channels=5).cuda().eval()
+    sds = [{k: v.cuda() for k, v in SwinIR(
+        in_channels=5, generator=torch.Generator().manual_seed(i)).state_dict().items()}
+        for i in range(4)]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    res = (80, 160, 320)
+    scene = {"u": {40: torch.randn(40, 40, device="cuda", generator=g)},
+             "f": {r: torch.randn(r, r, device="cuda", generator=g) for r in res},
+             "theta": {r: 0.5 + torch.rand(r, r, device="cuda", generator=g) for r in res}}
+    gains = tuple(0.8 + 0.4 * torch.rand(48, 48, device="cuda", generator=g) for _ in res)
+
+    def serve():
+        return ml_cascade(model, sds, scene, 320, amp_levels=gains, stats_mode="tile",
+                          coarse_tile=(40, 80, 80), overlap=False)
+
+    eager = serve()
+    assert (level_graphs.captures, level_graphs.replays) == (0, 0)
+    captured = serve()
+    replayed = serve()
+    torch.cuda.synchronize()
+    assert (level_graphs.captures, level_graphs.replays) == (3, 3)
+    assert all(torch.equal(captured[r], eager[r]) and torch.equal(replayed[r], eager[r])
+               for r in res)

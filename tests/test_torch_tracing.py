@@ -18,6 +18,7 @@ from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
 from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
 from superresolution_for_pdes_tpu_torch.models import AttentionUNet
 from superresolution_for_pdes_tpu_torch.models.resnet import PDEResNet
+from superresolution_for_pdes_tpu_torch.models.swinir import SwinIR
 from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
 from superresolution_for_pdes_tpu_torch.utils import profiling
 from superresolution_for_pdes_tpu_torch.utils.profiling import clear_spans, recorded_spans, span
@@ -29,7 +30,7 @@ PACKAGE = Path(profiling.__file__).resolve().parents[1]
 SPAN_NAMES = ("cascade", "cascade.level", "cascade.inputs", "cascade.model", "cascade.stitch",
               "cascade.refine", "cascade.modal", "cascade.replay", "multigrid.vcycle",
               "train.step", "train.forward", "physics.loss", "train.backward", "train.clip",
-              "train.optimizer")
+              "train.optimizer", "swinir.stage", "swinir.attention")
 
 
 def _opened_in_source():
@@ -96,6 +97,22 @@ def test_no_span_name_names_a_convolution(name):
     """A reader counts a kernel as a convolution's when a launching operation's
     name contains "conv"."""
     assert "conv" not in name.lower()
+
+
+def test_swinir_records_a_span_per_group_and_window_attention():
+    """Under a profiler, a TINY SwinIR forward opens ``swinir.stage`` per
+    residual group (``n``: tokens) and inside it ``swinir.attention`` per
+    block (``n``: windows times heads), on the map padded to the window."""
+    model = SwinIR(in_channels=5, embed_dim=12, depths=(2, 3), num_heads=(2, 3),
+                   window_size=4, generator=torch.Generator().manual_seed(2))
+    x = torch.randn(3, 5, 14, 16, generator=torch.Generator().manual_seed(3))
+    records, _ = _profiled(lambda: model(x))
+    stages = [r for r in records if r.name == "swinir.stage"]
+    assert [r.n for r in stages] == [3 * 16 * 16] * 2 and all(r.parent is None for r in stages)
+    attention = {s.index: [r.n for r in records if r.name == "swinir.attention"
+                           and r.parent == s.index] for s in stages}
+    assert list(attention.values()) == [[3 * 16 * 2] * 2, [3 * 16 * 3] * 3]
+    assert len(records) == 2 + 5
 
 
 def test_cascade_records_its_span_tree():
