@@ -128,7 +128,15 @@ Phases (any failed check raises, and the script exits non-zero):
 23. trace -- ``device_trace`` around one served cascade to 640^2: the trace
    names the convolution kernels;
 24. native -- the float64 C++ oracle built with g++, its CG at 160^2 against
-   a float64 DST solve on the card (1e-8).
+   a float64 DST solve on the card (1e-8);
+25. window attention -- SwinIR's kernel pair (``csrc/window_attention.cu``)
+   against its plain twin (output, qkv and bias-table gradients, plain and
+   shifted) at the training shape (32 maps of 40^2) and a served 160^2
+   level, its gradients bit for bit over two runs, and, shifted, its device
+   time, time per call, the twin's, its bound and SDPA on heads padded to 32
+   as the yardstick; then the pair's launches on its main path: a
+   published-width SwinIR's train step at (32, 40^2), in float32 and in
+   bfloat16 (autocast), with the counts set to 0 just before each.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true, "device":
@@ -1646,6 +1654,129 @@ def phase_native(dev: torch.device, smi: str) -> dict:
     return {"build_s": build_s, "cg_s": cg_s, "rel_err": err}
 
 
+def phase_window_attention(dev: torch.device, smi: str) -> dict:
+    """Phase 25: SwinIR's window attention kernel pair (``csrc/window_attention.cu``)
+    against its plain twin, forward and backward, plain and shifted, at the
+    training shape (32 maps of 40^2) and at a served 160^2 level (one map),
+    published widths (window 8, 6 heads of 30); then, shifted, the device time
+    of the forward launch and of the backward call (the kernel and its bias
+    sum), ms per forward and backward by CUDA events, the twin's, the bound,
+    and as the ``library_ms`` yardstick only, the composition's SDPA on heads
+    padded to 32 with its additive mask. The bound's bytes are those the pair
+    must move for a window and head of ``n`` tokens of size ``d``: q, k, v
+    read by each kernel, the output written, its gradient read, the
+    gradients of q, k and v written (``11 n d``; the backward takes
+    rowsum(P dP) and reads no output), the log-sum-exp written and read, and
+    the bias table read twice; its operations, ``12 n^2 d``, those of
+    ``portbench/families/swin_ir.py``'s ``attention_work``. Last, one train
+    step of a published-width SwinIR at (32, 40^2) through ``train_step``, in
+    float32 and in bfloat16, each with the counts set to 0 just before it:
+    one forward and one backward call a block, 36 each, and the pair's device
+    time a block inside that step (profiler)."""
+    import torch.nn.functional as F
+
+    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
+    from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
+    from superresolution_for_pdes_tpu_torch.models import SwinIR
+    from superresolution_for_pdes_tpu_torch.ops import window_attention as wa
+    from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
+
+    window, heads, d, n = 8, 6, 30, 64
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = {"max_rel_err": 0.0}
+    wa.reset_launch_counts()
+    for b, hp in ((32, 40), (1, 160)):
+        qkv = torch.randn(b, hp, hp, 3 * heads * d, device=dev, generator=gen)
+        table = 0.5 * torch.randn((2 * window - 1) ** 2, heads, device=dev, generator=gen)
+        g = torch.randn(b, hp, hp, heads * d, device=dev, generator=gen)
+        leaves = [t.clone().requires_grad_(True) for t in (qkv, table)]
+
+        def step(fn, shift=window // 2):
+            for t in leaves:
+                t.grad = None
+            o = fn(leaves[0], leaves[1], heads, window, shift, d ** -0.5)
+            o.backward(g)
+            return o
+
+        for shift in (0, window // 2):
+            got = [step(wa.window_attention, shift).detach()] + [t.grad for t in leaves]
+            want = [step(wa.plain_window_attention, shift).detach()] + [t.grad for t in leaves]
+            for what, x, y in zip(("out", "dqkv", "dtable"), got, want):
+                err = float((x - y).abs().max() / y.abs().max())
+                out["max_rel_err"] = max(out["max_rel_err"], err)
+                log(f"[window attention] ({b}, {hp}^2) shift {shift} {what}: kernels vs twin "
+                    f"{err:.3e} of max")
+                check(err <= 1e-4, f"window attention {what} at ({b}, {hp}^2): {err:.3e}")
+        wh = b * (hp // window) ** 2 * heads
+        nbytes = 4 * wh * (11 * n * d + 2 * n) + 4 * 2 * table.numel()
+        flops = 3 * wh * 4 * n * n * d
+        nw = (hp // window) ** 2
+        pad = torch.zeros(b * nw, heads, n, 2, device=dev)
+        q, k, v = (torch.cat([torch.randn(b * nw, heads, n, d, device=dev, generator=gen), pad],
+                             -1).requires_grad_(True) for _ in range(3))
+        mask = torch.randn(1, nw * heads, n, n, device=dev, generator=gen).requires_grad_(True)
+        go = torch.randn(b, nw * heads, n, d + 2, device=dev, generator=gen)
+
+        def sdpa():
+            o = F.scaled_dot_product_attention(q.view(b, nw * heads, n, d + 2),
+                                               k.view(b, nw * heads, n, d + 2),
+                                               v.view(b, nw * heads, n, d + 2), attn_mask=mask,
+                                               scale=d ** -0.5)
+            o.backward(go)
+
+        _, _, rows = profile(lambda: step(wa.window_attention), reps=20)
+        fwd = sum(r[1] for r in rows if "window_attention_forward" in r[0])
+        bwd = sum(r[1] for r in rows
+                  if "window_attention_backward" in r[0] or "bias_grad_sum" in r[0])
+        t = dict(shape=[b, hp, hp], device_ms=fwd + bwd, forward_device_ms=fwd,
+                 backward_device_ms=bwd, ms=time_ms(lambda: step(wa.window_attention), 20),
+                 plain_ms=time_ms(lambda: step(wa.plain_window_attention), 20),
+                 bound=bound(nbytes, flops), library_ms=time_ms(sdpa, 20),
+                 library_device_ms=device_ms_per_call(sdpa, reps=20))
+        t["roofline_pct"] = 100.0 * t["bound"][0] / t["device_ms"]
+        out[f"({b}, {hp}^2)"] = t
+        log(f"[window attention] ({b}, {hp}^2) shifted, forward + backward: device "
+            f"{t['device_ms']:.4f} ms (forward {fwd:.4f}, backward and bias sum {bwd:.4f}), "
+            f"{t['ms']:.4f} ms per call, twin {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]}; {nbytes / 1e6:.1f} MB, "
+            f"{flops / 1e9:.2f} GFLOP), {t['roofline_pct']:.1f}% of it; SDPA on heads padded "
+            f"to 32 (yardstick) {t['library_ms']:.4f} ms per call, {t['library_device_ms']:.4f} "
+            f"ms on the device; on {smi}")
+        runs = []
+        for _ in range(2):
+            step(wa.window_attention)
+            runs.append([t.grad.clone() for t in leaves])
+        check(all(torch.equal(x, y) for x, y in zip(*runs)),
+              f"window attention gradients at ({b}, {hp}^2) differ between two runs")
+
+    model = SwinIR(in_channels=5, generator=torch.Generator().manual_seed(17)).to(dev)
+    blocks = sum(len(layer.residual_group.blocks) for layer in model.layers)
+    opt = loop.make_optimizer(model, TrainConfig())
+    stats = NormStats.from_dataset(generate_mixed_dataset(5, 16, 16, theta="mixed", device=dev))
+    out["launches_by_path"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        batch = step_batch(dev, stats, True, True, dtype=dtype)
+        check(tuple(batch["x"].shape) == (32, 5, 40, 40), f"SwinIR batch {batch['x'].shape}")
+        wa.reset_launch_counts()
+        loss = float(loop.train_step(model, opt, batch, stats, 0.0, 1.0))
+        torch.cuda.synchronize()
+        counts = wa.launch_counts()
+        path = f"SwinIR train step at (32, 40^2), published widths, {str(dtype)[6:]} (phase 25)"
+        out["launches_by_path"][path] = counts
+        log(f"[window attention] {path}: loss {loss:.6f}, launches {counts}")
+        check(math.isfinite(loss), f"{path}: loss {loss}")
+        check(counts == {"kernel_forward": blocks, "kernel_backward": blocks},
+              f"{path}: one forward and one backward call a block ({blocks}), got {counts}")
+        _, busy, rows = profile(lambda: loop.train_step(model, opt, batch, stats, 0.0, 1.0),
+                                reps=5)
+        pair = sum(r[1] for r in rows if "window_attention" in r[0] or "bias_grad_sum" in r[0])
+        out[f"in_step_device_ms_per_block {str(dtype)[6:]}"] = pair / blocks
+        log(f"[window attention] {path}: the pair's device time {pair:.3f} ms a step, "
+            f"{pair / blocks:.4f} ms a block, of {busy:.3f} ms busy; on {smi}")
+    out["launches"] = out["launches_by_path"][next(iter(out["launches_by_path"]))]
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -2093,6 +2224,8 @@ def main() -> None:
         lap("23 device trace")
     native_run = phase_native(dev, smi)
     lap("24 native oracle")
+    attention = phase_window_attention(dev, smi)
+    lap("25 window attention")
 
     t40 = loss_timing[(32, 40, 40)]
     timing = {"K1": dict(solved["k1_timing"],
@@ -2165,6 +2298,20 @@ def main() -> None:
             "device_ms": t["device_ms"], "shape": t["shape"],
             "launches_by_path": {"train r7bf16 (phase 18)": bf16["launches"][fn]}})
     rows[-2]["loss_max_rel_err"] = bf16["timing"]["forward"]["loss_rel"]
+    t = attention["(32, 40^2)"]
+    rows.append({
+        "name": "window attention kernel_forward + kernel_backward", "route": "cuda",
+        "source": "superresolution_for_pdes_tpu_torch/csrc/window_attention.cu",
+        "replaces": "no TPU kernel (no JAX SwinIR): the port's roll, partition, padded-head SDPA",
+        "launches": attention["launches"],
+        "path": "a published-width SwinIR's train step at (32, 40^2) (phase 25): one forward "
+                "and one backward call a block; bfloat16 is widened to the same kernels",
+        "launches_by_path": attention["launches_by_path"],
+        "in_step_device_ms_per_block": attention["in_step_device_ms_per_block float32"],
+        "max_rel_err": attention["max_rel_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+        "device_ms": t["device_ms"], "shape": t["shape"],
+        "served_160": attention["(1, 160^2)"]})
     log(f"[summary] K3 timing {k3_timing}; K2 timing {k2_timing}; fused timing "
         f"{fused_timing}; K3 sweeps {sweeps}; loss timing {loss_timing}")
     log(f"[summary] generate {generated}; train {trained['summary']}")
@@ -2174,7 +2321,7 @@ def main() -> None:
     log(f"[summary] resnet {resnet['summary']}; router harnesses {routed['summary']}")
     log(f"[summary] r7bf16 {bf16['summary']}; fused {fused_run}; dp {dp_run}")
     log(f"[summary] online {online_run}; shard {shard_run}; trace {trace_run}; native "
-        f"{native_run}")
+        f"{native_run}; window attention {attention}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -32,16 +32,20 @@ Departures from upstream:
 * initialisation: linear weights and the bias table truncated normal (std
   0.02, bounds +-2 as upstream's ``trunc_normal_``), linear biases 0,
   LayerNorm (1, 0); convolutions by :func:`~.unet.init_weights`;
-* the relative index is a non-persistent buffer and the region masks a
-  per-size cache filled on the device at the first (eager) call of a size,
-  so the ``state_dict`` holds learned tensors only (upstream also stores
-  both, at its training size); its keys are upstream's;
-* the attention is ``F.scaled_dot_product_attention`` with bias plus mask as
-  one additive float mask, on heads zero-padded to a multiple of 8 (the
-  products and the result are unchanged): SDPA's memory-efficient kernel
-  takes a float32 head size only in multiples of 4, and at 30 PyTorch falls
-  back to its unfused math path; the proj and the roll back act per token,
-  so they run after the windows are put back in place.
+* the attention acts on the map in token layout
+  (``ops/window_attention.py``): the qkv linear runs on the map as it is, a
+  window's tokens are read at their places in the map rolled by ``-shift``,
+  the relative-position bias and the region mask come from the tokens'
+  places, and the attended tokens are written back to the same places, where
+  the proj linear reads them; so no roll, window partition or reverse is a
+  tensor of its own, and neither are the relative index and the region masks
+  (upstream stores both as buffers, at its training size): the ``state_dict``
+  holds learned tensors only, under upstream's keys. On CUDA it is a
+  hand-written CUDA kernel pair (``csrc/window_attention.cu``) in float32
+  whose heads keep their size 30, built for the published widths (window 8,
+  heads of 30) and the tests' TINY ones (window 4, heads of 6); bfloat16
+  under autocast is widened to it, and other widths raise. On the CPU a
+  plain PyTorch twin of the same arithmetic.
 
 Parameter count at the published widths (180, 6x6 blocks, 6 heads, window
 8, MLP ratio 2) with 5 input channels: 11,504,161.
@@ -49,79 +53,37 @@ Parameter count at the published widths (180, 6x6 blocks, 6 heads, window
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from superresolution_for_pdes_tpu_torch.models.unet import init_weights
+from superresolution_for_pdes_tpu_torch.ops.window_attention import window_attention
 from superresolution_for_pdes_tpu_torch.utils.profiling import span
 
-HEAD_ALIGN = 8  # heads are zero-padded to a multiple of this for SDPA's fused kernels
-MASK = -100.0   # upstream's logit between tokens of different shift regions
-
-
-def relative_position_index(ws: int) -> torch.Tensor:
-    """``(ws^2 * ws^2,)`` row of the bias table for each pair of window tokens."""
-    coords = torch.stack(torch.meshgrid(torch.arange(ws), torch.arange(ws), indexing="ij"))
-    coords = coords.flatten(1)
-    rel = (coords[:, :, None] - coords[:, None, :]).permute(1, 2, 0) + (ws - 1)
-    return (rel[..., 0] * (2 * ws - 1) + rel[..., 1]).flatten()
-
-
-def shift_mask(hp: int, wp: int, ws: int, shift: int, device) -> torch.Tensor:
-    """``(windows, ws^2, ws^2)`` region mask of a map of ``hp x wp`` rolled by
-    ``-shift``: 0 within a region, -100 across, made on ``device``."""
-
-    def regions(n):
-        i = torch.arange(n, device=device)
-        return (i >= n - ws).long() + (i >= n - shift).long()
-
-    ids = regions(hp)[:, None] * 3 + regions(wp)[None, :]
-    win = ids.view(hp // ws, ws, wp // ws, ws).permute(0, 2, 1, 3).reshape(-1, ws * ws)
-    across = win[:, None, :] != win[:, :, None]
-    return torch.zeros(across.shape, device=device).masked_fill_(across, MASK)
-
-
 class WindowAttention(nn.Module):
-    """Multi-head self-attention inside windows with the relative-position
-    bias; takes the normalised map ``(B, Hp, Wp, C)`` (rolled on shifted
-    blocks) and returns the attended map, projected, in the same place."""
+    """Multi-head self-attention inside the windows of the map rolled by
+    ``-shift``, with the relative-position bias (and, shifted, the region
+    mask); takes the normalised map ``(B, Hp, Wp, C)`` and returns the
+    attended map, projected, in the same places."""
 
-    def __init__(self, dim: int, window_size: int, num_heads: int):
+    def __init__(self, dim: int, window_size: int, num_heads: int, shift: int = 0):
         super().__init__()
-        self.window_size, self.num_heads = window_size, num_heads
-        self.head_dim = dim // num_heads
-        self.scale = self.head_dim ** -0.5
+        self.window_size, self.num_heads, self.shift = window_size, num_heads, shift
+        self.scale = (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
-        self.register_buffer("relative_position_index", relative_position_index(window_size),
-                             persistent=False)
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        b, hp, wp, c = x.shape
-        ws, h, d = self.window_size, self.num_heads, self.head_dim
-        nw, n = (hp // ws) * (wp // ws), ws * ws
-        with span("swinir.attention", b * nw * h):
-            qkv = self.qkv(x).view(b, hp // ws, ws, wp // ws, ws, 3, h, d)
-            qkv = qkv.permute(5, 0, 1, 3, 6, 2, 4, 7)  # (3, B, rows, cols, heads, ws, ws, d)
-            pad = -d % HEAD_ALIGN
-            if pad:
-                qkv = F.pad(qkv, (0, pad))
-            q, k, v = qkv.reshape(3, b, nw, h, n, d + pad).unbind(0)
-            bias = self.relative_position_bias_table.t()[:, self.relative_position_index]
-            bias = bias.view(1, h, n, n)
-            if mask is None:  # one bias for every window: windows are the batch
-                q, k, v = (t.view(b * nw, h, n, d + pad) for t in (q, k, v))
-            else:  # a bias and mask per window and head: both are the heads
-                q, k, v = (t.view(b, nw * h, n, d + pad) for t in (q, k, v))
-                bias = (mask[:, None] + bias).view(1, nw * h, n, n)
-            o = F.scaled_dot_product_attention(q, k, v, attn_mask=bias, scale=self.scale)
-            o = o.view(b, hp // ws, wp // ws, h, ws, ws, d + pad)[..., :d]
-            o = o.permute(0, 1, 4, 2, 5, 3, 6).reshape(b, hp, wp, c)
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, hp, wp, _ = x.shape
+        ws, h = self.window_size, self.num_heads
+        with span("swinir.attention", b * (hp // ws) * (wp // ws) * h):
+            o = window_attention(self.qkv(x), self.relative_position_bias_table, h, ws,
+                                 self.shift, self.scale)
             return self.proj(o)
 
 
@@ -136,28 +98,20 @@ class Mlp(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    """Pre-norm window attention and MLP, each with a residual; ``shift``
-    rolls the map by ``-shift`` around the attention."""
+    """Pre-norm window attention and MLP, each with a residual; the attention
+    takes its windows from the map rolled by ``-shift``."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
                  mlp_ratio: float):
         super().__init__()
-        self.shift = shift
         self.norm1 = nn.LayerNorm(dim)
-        self.attn = WindowAttention(dim, window_size, num_heads)
+        self.attn = WindowAttention(dim, window_size, num_heads, shift)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, t: torch.Tensor, hp: int, wp: int, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
         b, length, c = t.shape
-        x = self.norm1(t).view(b, hp, wp, c)
-        s = self.shift
-        if s:
-            x = torch.roll(x, (-s, -s), (1, 2))
-        x = self.attn(x, mask if s else None)
-        if s:
-            x = torch.roll(x, (s, s), (1, 2))
-        t = t + x.reshape(b, length, c)
+        t = t + self.attn(self.norm1(t).view(b, hp, wp, c)).reshape(b, length, c)
         return t + self.mlp(self.norm2(t))
 
 
@@ -181,10 +135,10 @@ class ResidualGroup(nn.Module):
                       mlp_ratio) for i in range(depth))
         self.conv = nn.Conv2d(dim, dim, 3, padding=1)
 
-    def forward(self, t: torch.Tensor, hp: int, wp: int, mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, t: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
         x = t
         for block in self.residual_group.blocks:
-            x = block(x, hp, wp, mask)
+            x = block(x, hp, wp)
         return t + self.conv(_unembed(x, hp, wp)).flatten(2).transpose(1, 2)
 
 
@@ -221,7 +175,6 @@ class SwinIR(nn.Module):
         self.norm = nn.LayerNorm(embed_dim)
         self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, padding=1)
         self.conv_last = nn.Conv2d(embed_dim, 1, 3, padding=1)
-        self._masks: Dict[tuple, torch.Tensor] = {}
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, nn.Linear):
@@ -232,18 +185,6 @@ class SwinIR(nn.Module):
                                           generator=generator)
             init_weights(self, generator)
 
-    def _shift_mask(self, hp: int, wp: int, device) -> torch.Tensor:
-        """The region mask of an ``hp x wp`` map, kept per size and device
-        from its first call (one made while a CUDA graph captures is not
-        kept: its memory belongs to the graph's pool)."""
-        key = (hp, wp, device)
-        mask = self._masks.get(key)
-        if mask is None:
-            mask = shift_mask(hp, wp, self.window_size, self.window_size // 2, device)
-            if not (device.type == "cuda" and torch.cuda.is_current_stream_capturing()):
-                self._masks[key] = mask
-        return mask
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h, w = x.shape[-2:]
         ws = self.window_size
@@ -252,9 +193,8 @@ class SwinIR(nn.Module):
         hp, wp = x.shape[-2:]
         x0 = self.conv_first(x)
         t = self.patch_embed.norm(x0.flatten(2).transpose(1, 2))
-        mask = self._shift_mask(hp, wp, x.device)
         for layer in self.layers:
             with span("swinir.stage", t.shape[0] * t.shape[1]):
-                t = layer(t, hp, wp, mask)
+                t = layer(t, hp, wp)
         res = self.conv_after_body(_unembed(self.norm(t), hp, wp)) + x0
         return (self.conv_last(res) + x[:, 0:1])[..., :h, :w]

@@ -30,7 +30,7 @@ PACKAGE = Path(profiling.__file__).resolve().parents[1]
 SPAN_NAMES = ("cascade", "cascade.level", "cascade.inputs", "cascade.model", "cascade.stitch",
               "cascade.refine", "cascade.modal", "cascade.replay", "multigrid.vcycle",
               "train.step", "train.forward", "physics.loss", "train.backward", "train.clip",
-              "train.optimizer", "swinir.stage", "swinir.attention")
+              "train.optimizer", "swinir.stage", "swinir.attention", "swinir.attention.kernel")
 
 
 def _opened_in_source():
@@ -113,6 +113,18 @@ def test_swinir_records_a_span_per_group_and_window_attention():
                            and r.parent == s.index] for s in stages}
     assert list(attention.values()) == [[3 * 16 * 2] * 2, [3 * 16 * 3] * 3]
     assert len(records) == 2 + 5
+
+
+def test_swinir_kernel_span_never_opens_on_the_twin():
+    """``swinir.attention.kernel`` marks the CUDA kernels' path only: a TINY
+    SwinIR forward and backward on the CPU (the plain twin) under a profiler
+    opens ``swinir.attention`` per block and no kernel span."""
+    model = SwinIR(in_channels=5, embed_dim=12, depths=(2,), num_heads=(2,), window_size=4,
+                   generator=torch.Generator().manual_seed(4))
+    x = torch.randn(2, 5, 8, 12, generator=torch.Generator().manual_seed(5))
+    records, _ = _profiled(lambda: model(x).sum().backward())
+    names = [r.name for r in records]
+    assert names.count("swinir.attention") == 2 and "swinir.attention.kernel" not in names
 
 
 def test_cascade_records_its_span_tree():
