@@ -649,9 +649,9 @@ def phase_freeze(dev: torch.device, smi: str, root) -> dict:
         solve_multi_resolution_batch,
     )
     from superresolution_for_pdes_tpu_torch.cascade.upscale import (
-        _level_tile,
         default_scene_chunk,
         ml_cascade,
+        plan_cascade,
     )
     from superresolution_for_pdes_tpu_torch.deploy import load_bundle, run_bundle
     from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
@@ -720,8 +720,10 @@ def phase_freeze(dev: torch.device, smi: str, root) -> dict:
     field_diff = max(float((by_chunk[None][r] - by_chunk[32][r]).abs().max()
                            / by_chunk[32][r].abs().max()) for r in (80, 160, 320, 640))
     check(field_diff <= 1e-5, f"chunked fields {field_diff:.3e} of max|field| from one chunk")
-    chunks = {r: default_scene_chunk(32, r // 2, _level_tile(manifest["coarse_tile"], i), False)
-              for i, r in enumerate((80, 160, 320, 640))}
+    plan = plan_cascade(model, variables, 40, 640, stats_mode="tile",
+                        coarse_tile=manifest["coarse_tile"])
+    chunks = {lv.res: default_scene_chunk(32, lv.res // 2, lv.coarse_tile, lv.overlap)
+              for lv in plan.levels}
     log(f"[freeze] calibration of 32 scenes, default scene chunk (scenes per model call by "
         f"level {chunks}): {walls['default']:.2f} s, peak {peaks['default'] / 2**30:.2f} GiB; "
         f"one chunk of 32: {walls['one chunk']:.2f} s, peak {peaks['one chunk'] / 2**30:.2f} "

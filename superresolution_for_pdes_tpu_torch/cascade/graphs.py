@@ -26,8 +26,9 @@ level's weights, the gains, precomputed stats. New weights (another
 state_dict) are another key; weights updated in place keep it, and the
 replay reads their new values. A replay runs the captured kernels in the
 captured order, so its fields are the eager path's bit for bit; it opens the
-span ``cascade.replay`` and advances the stencil kernels' launch counters by
-what the capture counted.
+span ``cascade.replay`` and advances the hand-written kernels' launch counts
+(``ops/_build.py``: the stencils', the window attention's) by what the
+capture counted.
 
 A cascade is a level 0 and the levels called after it in order (a level whose
 predecessor was not the last call here starts one of its own). The cache
@@ -47,7 +48,7 @@ from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
-from superresolution_for_pdes_tpu_torch.ops.stencil_kernels import add_launches, launch_tally
+from superresolution_for_pdes_tpu_torch.ops._build import add_launches, launch_tally
 from superresolution_for_pdes_tpu_torch.utils.profiling import span
 
 MAX_CASCADES = 4
@@ -62,7 +63,7 @@ class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     inputs: tuple            # static input buffers (None where the level has no such input)
     output: torch.Tensor
-    launches: tuple          # the stencil kernels' launches the capture counted
+    launches: Mapping        # the kernels' launches the capture counted, as launch_tally's
 
     def replay(self, inputs) -> torch.Tensor:
         for buf, x in zip(self.inputs, inputs):
@@ -190,8 +191,8 @@ class LevelGraphs:
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=cascade.pool, stream=stream):
                 output = program(*static)
-        launches = tuple(b - a for a, b in zip(before, launch_tally()))
-        add_launches(tuple(-n for n in launches))  # captured, not run
+        launches = launch_tally() - before
+        add_launches({k: -n for k, n in launches.items()})  # captured, not run
         current.wait_stream(stream)
         self.captures += 1
         return out, _Graph(graph, static, output, launches)

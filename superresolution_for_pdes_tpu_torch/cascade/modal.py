@@ -140,20 +140,16 @@ def fit_modal_gains(model, variables, scenes: Dict, target_resolution: int = 640
     scene axis), each level run on the previous level's corrected field.
     ``scene_chunk`` is the cascade's scenes per model call; each level's gains
     are fit on all scenes at once."""
-    from superresolution_for_pdes_tpu_torch.cascade.upscale import (
-        check_cascade_args,
-        level_program,
-        level_resolutions,
-    )
+    from superresolution_for_pdes_tpu_torch.cascade.upscale import level_program, plan_cascade
 
-    check_cascade_args(model, variables, stats_mode, train_stats)
+    plan = plan_cascade(model, variables, start_resolution, target_resolution,
+                        stats_mode=stats_mode, train_stats=train_stats, coarse_tile=coarse_tile,
+                        overlap=overlap, symmetrize=symmetrize, scene_chunk=scene_chunk)
     gains = []
     current = scenes["u"][start_resolution]
-    for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
-        pred = level_program(model, variables, i, current, scenes, res, stats_mode,
-                             train_stats, coarse_tile, overlap, symmetrize,
-                             scene_chunk=scene_chunk)
-        g = band_gains(pred, scenes["u"][res], bands_per_octave, kind)
+    for level in plan.levels:
+        pred = level_program(plan, level, current, scenes)
+        g = band_gains(pred, scenes["u"][level.res], bands_per_octave, kind)
         gains.append(g)
         current = apply_level_correction(pred, g)
     return tuple(gains)

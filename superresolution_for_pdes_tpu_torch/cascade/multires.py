@@ -20,20 +20,10 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from superresolution_for_pdes_tpu_torch.data.generate import make_generator, uniform
 from superresolution_for_pdes_tpu_torch.device import resolve_device
 from superresolution_for_pdes_tpu_torch.ops.grid import forcing_term
 from superresolution_for_pdes_tpu_torch.solver.dst import solve_poisson_dst
-
-
-def _generator(seed_or_generator) -> torch.Generator:
-    if isinstance(seed_or_generator, torch.Generator):
-        return seed_or_generator
-    return torch.Generator().manual_seed(int(seed_or_generator))
-
-
-def _uniform(gen: torch.Generator, shape, lo: float, hi: float, dtype) -> torch.Tensor:
-    u = torch.rand(shape, generator=gen, dtype=dtype, device=gen.device)
-    return u * (hi - lo) + lo
 
 
 def multi_resolution_from_params(
@@ -68,10 +58,10 @@ def solve_multi_resolution(
     from an int seed or a ``torch.Generator``, then solve every resolution on
     ``device`` (default ``cuda``; raises without a card)."""
     device = resolve_device(device)
-    gen = _generator(seed_or_generator)
+    gen = make_generator(seed_or_generator, "cpu")
     n_finest = max(resolutions)
-    k = _uniform(gen, (2,), *k_range, dtype)
-    theta = _uniform(gen, (n_finest, n_finest), *theta_range, dtype).to(device)
+    k = uniform(gen, (2,), *k_range, dtype)
+    theta = uniform(gen, (n_finest, n_finest), *theta_range, dtype).to(device)
     return multi_resolution_from_params(
         float(k[0]), float(k[1]), theta, n_coarse, resolutions, refine_iters)
 
@@ -85,8 +75,8 @@ def solve_multi_resolution_batch(
 ) -> Dict:
     """``n_scenes`` scenes; every field gains a leading ``(n_scenes,)`` axis."""
     device = resolve_device(device)
-    gen = _generator(seed_or_generator)
+    gen = make_generator(seed_or_generator, "cpu")
     n_finest = max(resolutions)
-    k = _uniform(gen, (2, n_scenes), *k_range, dtype).to(device)
-    theta = _uniform(gen, (n_scenes, n_finest, n_finest), *theta_range, dtype).to(device)
+    k = uniform(gen, (2, n_scenes), *k_range, dtype).to(device)
+    theta = uniform(gen, (n_scenes, n_finest, n_finest), *theta_range, dtype).to(device)
     return multi_resolution_from_params(k[0], k[1], theta, n_coarse, resolutions, refine_iters)

@@ -28,9 +28,11 @@ every model call into contiguous parts over a list of devices
 and the outputs are gathered onto the fields' device in order. A list of one
 device, the fields' own, is the unsplit call.
 
-:func:`ml_cascade` runs :func:`level_program` once per level;
-:func:`ml_cascade_stepwise` runs the same calls and synchronises after each,
-so each level's wall time is observable (the statistical harness's timings);
+:func:`plan_cascade` resolves a cascade's arguments once into a
+:class:`CascadePlan` of :class:`CascadeLevel` records, which
+:func:`level_program` runs one at a time: :func:`ml_cascade` in order;
+:func:`ml_cascade_stepwise` the same, synchronising after each level, so each
+level's wall time is observable (the statistical harness's timings);
 :func:`calibrate_amplitude` fits one amplitude per level on self-generated
 scenes (the modal gains are :func:`~.modal.calibrate_modal`'s).
 """
@@ -38,9 +40,11 @@ scenes (the modal gains are :func:`~.modal.calibrate_modal`'s).
 from __future__ import annotations
 
 import copy
+import dataclasses
+import functools
 import math
 import time
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -59,6 +63,7 @@ from superresolution_for_pdes_tpu_torch.data.normalization import (
     make_model_inputs,
     per_sample_stats,
 )
+from superresolution_for_pdes_tpu_torch.device import synchronize
 from superresolution_for_pdes_tpu_torch.ops.resize import resize_align_corners
 from superresolution_for_pdes_tpu_torch.solver.multigrid import vcycle
 from superresolution_for_pdes_tpu_torch.utils.profiling import span
@@ -75,7 +80,7 @@ STATS_MODES = ("oracle", "scene", "train", "tile")
 SCENE_CHUNK_POINTS = 1 << 22
 
 
-def _apply(model: nn.Module, weights, x: torch.Tensor) -> torch.Tensor:
+def apply_model(model: nn.Module, weights, x: torch.Tensor) -> torch.Tensor:
     """Eval-mode forward of ``model``'s architecture with ``weights``."""
     if weights is None:
         return model(x)
@@ -113,27 +118,19 @@ class TileSplit:
         outs = []
         for part, device in zip(torch.tensor_split(x, len(self.devices)), self.devices):
             if device == x.device:
-                outs.append(_apply(model, weights, part))
+                outs.append(apply_model(model, weights, part))
             else:
-                outs.append(_apply(*self._replica(model, weights, device),
-                                   part.to(device)).to(x.device))
+                outs.append(apply_model(*self._replica(model, weights, device),
+                                        part.to(device)).to(x.device))
         return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def _apply_split(model, weights, x: torch.Tensor, split: Optional[TileSplit]) -> torch.Tensor:
-    return _apply(model, weights, x) if split is None else split(model, weights, x)
+    return apply_model(model, weights, x) if split is None else split(model, weights, x)
 
 
-def _model_forward(model, weights, x: torch.Tensor,
+def dihedral_apply(model, weights, x: torch.Tensor,
                    split: Optional[TileSplit] = None) -> torch.Tensor:
-    """Model call on ``(..., C, H, W)`` inputs, flattened to one batch."""
-    lead = x.shape[:-3]
-    out = _apply_split(model, weights, x.reshape((-1,) + x.shape[-3:]), split)
-    return out.reshape(lead + out.shape[-3:])
-
-
-def _dihedral_apply(model, weights, x: torch.Tensor,
-                    split: Optional[TileSplit] = None) -> torch.Tensor:
     """Average the model over the 8 symmetries of the square (test-time
     ensembling), as one model call over an 8x larger batch. ``x`` is NCHW."""
     xs = []
@@ -161,47 +158,103 @@ def _refine(u: torch.Tensor, f: torch.Tensor, theta: torch.Tensor, cycles: int,
         return u
 
 
-def _level_overlap(overlap, i: int) -> bool:
-    """One bool for every level, or one per level (trailing levels reuse the
-    last)."""
-    if isinstance(overlap, (list, tuple)):
-        return bool(overlap[min(i, len(overlap) - 1)])
-    return bool(overlap)
+def _per_level(value, i: int):
+    """Level ``i``'s entry of a setting given once for every level, or as a
+    list or tuple of one per level (trailing levels reuse the last)."""
+    if isinstance(value, (list, tuple)):
+        return value[min(i, len(value) - 1)]
+    return value
 
 
-def _level_tile(coarse_tile, i: int) -> int:
-    """One coarse tile size for every level, or one per level (trailing levels
-    reuse the last)."""
-    if isinstance(coarse_tile, (list, tuple)):
-        return int(coarse_tile[min(i, len(coarse_tile) - 1)])
-    return int(coarse_tile)
+# Marks a field that a level's graph key holds by identity or address; every
+# other field of a plan or a level is one of the key's settings.
+_KEYED_APART = {"setting": False}
 
 
-def _level_weights(variables, i: int):
-    if isinstance(variables, (list, tuple)):
-        return variables[min(i, len(variables) - 1)]
-    return variables
+class _Record:
+    @functools.cached_property
+    def settings(self) -> tuple:
+        """The fields not marked ``_KEYED_APART``, read once per record: a
+        plan's and a level's are the ``settings`` of the level's graph key."""
+        return tuple(getattr(self, f.name) for f in dataclasses.fields(self)
+                     if f.metadata.get("setting", True))
 
 
-def _level_body(model, weights, current: torch.Tensor, f_next: torch.Tensor,
-                theta_next: torch.Tensor, stats_source, coarse_tile: int, overlap: bool,
-                stats_kind: str, symmetrize: bool = False, refine_cycles: int = 0,
-                use_kernels: bool | None = None,
-                split: Optional[TileSplit] = None) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True, eq=False)
+class CascadeLevel(_Record):
+    """Level ``index`` of a plan, to ``res``: its tiling, weights and gains."""
+
+    index: int
+    res: int
+    coarse_tile: int
+    overlap: bool
+    weights: object = dataclasses.field(metadata=_KEYED_APART)
+    gains: object = dataclasses.field(metadata=_KEYED_APART)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class CascadePlan(_Record):
+    """A cascade's arguments as :func:`plan_cascade` resolves them."""
+
+    model: nn.Module = dataclasses.field(metadata=_KEYED_APART)
+    stats_mode: str
+    train_stats: Optional[NormStats] = dataclasses.field(metadata=_KEYED_APART)
+    symmetrize: bool
+    refine_cycles: int
+    use_kernels: bool | None
+    scene_chunk: int | None
+    split: Optional[TileSplit] = dataclasses.field(metadata=_KEYED_APART)
+    levels: Tuple[CascadeLevel, ...] = dataclasses.field(metadata=_KEYED_APART)
+
+
+def plan_cascade(model: nn.Module, variables, start_resolution: int, target_resolution: int,
+                 stats_mode: str = "scene", train_stats: Optional[NormStats] = None,
+                 coarse_tile=20, overlap=False, symmetrize: bool = False,
+                 refine_cycles: int = 0, amp_levels=None, use_kernels: bool | None = None,
+                 scene_chunk: int | None = None, tile_devices=None) -> CascadePlan:
+    """The cascade from ``start_resolution`` to ``target_resolution`` as a
+    plan (arguments as for :func:`ml_cascade`; the tile, the overlap and the
+    weights once or per level, by :func:`_per_level`). Checks the stats mode
+    and the weights, and puts the model and any module of weights in eval
+    mode."""
+    if stats_mode not in STATS_MODES:
+        raise ValueError(f"unknown stats_mode: {stats_mode!r}")
+    if stats_mode == "train" and train_stats is None:
+        raise ValueError("stats_mode='train' requires train_stats")
+    model.eval()
+    for w in (variables if isinstance(variables, (list, tuple)) else [variables]):
+        if isinstance(w, nn.Module):
+            w.eval()
+        elif w is not None and not isinstance(w, Mapping):
+            raise TypeError(f"variables entries must be state_dicts or modules, got {type(w)}")
+    levels = tuple(
+        CascadeLevel(i, res, int(_per_level(coarse_tile, i)), bool(_per_level(overlap, i)),
+                     _per_level(variables, i), None if amp_levels is None else amp_levels[i])
+        for i, res in enumerate(level_resolutions(start_resolution, target_resolution)))
+    if tile_devices is not None and not isinstance(tile_devices, TileSplit):
+        tile_devices = TileSplit(tile_devices)
+    return CascadePlan(model, stats_mode, train_stats, symmetrize, refine_cycles, use_kernels,
+                       scene_chunk, tile_devices, levels)
+
+
+def _level_body(plan: CascadePlan, level: CascadeLevel, current: torch.Tensor,
+                f_next: torch.Tensor, theta_next: torch.Tensor,
+                stats_field: torch.Tensor) -> torch.Tensor:
     """One cascade level on ``(..., r, r)`` fields (optional leading scene
-    axis)."""
+    axis); the ``"scene"`` and ``"oracle"`` modes take ``stats_field``'s stats."""
+    coarse_tile, overlap = level.coarse_tile, level.overlap
     fine_tile = 2 * coarse_tile
     next_res = f_next.shape[-1]
     c_stride = coarse_tile // 2 if overlap else coarse_tile
     per_axis = (current.shape[-1] - coarse_tile) // c_stride + 1
     n_tiles = math.prod(current.shape[:-2]) * per_axis ** 2
     with span("cascade.inputs", n_tiles):
-        if stats_kind == "per_tile":
+        if plan.stats_mode == "tile":
             stats = None
-        elif stats_kind == "precomputed":
-            stats = stats_source
-        else:  # "field": per-scene stats, shaped to broadcast over the tile axis
-            stats = NormStats.from_fields(stats_source.unsqueeze(-3), f_next.unsqueeze(-3),
+        elif plan.stats_mode == "train":
+            stats = plan.train_stats
+        else:  # per-scene stats, shaped to broadcast over the tile axis
+            stats = NormStats.from_fields(stats_field.unsqueeze(-3), f_next.unsqueeze(-3),
                                           theta_next.unsqueeze(-3), dims=(-2, -1))
         if overlap:
             u_tiles, f_tiles, theta_tiles = (
@@ -215,20 +268,17 @@ def _level_body(model, weights, current: torch.Tensor, f_next: torch.Tensor,
         st = per_sample_stats(u_tiles, f_tiles, theta_tiles) if stats is None else stats
         x = make_model_inputs(u_tiles, f_tiles, theta_tiles, st,
                               fine_shape=(fine_tile, fine_tile),
-                              scale_channels=model.in_channels > 3)
-    with span("cascade.model", n_tiles):
-        if symmetrize:
-            lead = x.shape[:-3]
-            pred = _dihedral_apply(model, weights, x.reshape((-1,) + x.shape[-3:]), split)
-            pred = pred.reshape(lead + pred.shape[-3:])
-        else:
-            pred = _model_forward(model, weights, x, split)
+                              scale_channels=plan.model.in_channels > 3)
+    with span("cascade.model", n_tiles):  # one call over the tiles flattened to one batch
+        apply = dihedral_apply if plan.symmetrize else _apply_split
+        pred = apply(plan.model, level.weights, x.reshape((-1,) + x.shape[-3:]), plan.split)
+        pred = pred.reshape(x.shape[:-3] + pred.shape[-3:])
     with span("cascade.stitch", n_tiles):
         up_tiles = st.denormalize_u(pred[..., 0, :, :])
         out = (stitch_tiles_overlapping(up_tiles, next_res, 2 * c_stride) if overlap
                else stitch_tiles(up_tiles))
-    if refine_cycles > 0:
-        out = _refine(out, f_next, theta_next, refine_cycles, use_kernels)
+    if plan.refine_cycles > 0:
+        out = _refine(out, f_next, theta_next, plan.refine_cycles, plan.use_kernels)
     return out
 
 
@@ -253,92 +303,58 @@ def level_resolutions(start: int, target: int) -> tuple[int, ...]:
     return tuple(out)
 
 
-def check_cascade_args(model: nn.Module, variables, stats_mode: str,
-                       train_stats: Optional[NormStats]) -> None:
-    """Validate a cascade's stats mode and weights, and put the model in eval
-    mode (the entry points' shared preamble)."""
-    if stats_mode not in STATS_MODES:
-        raise ValueError(f"unknown stats_mode: {stats_mode!r}")
-    if stats_mode == "train" and train_stats is None:
-        raise ValueError("stats_mode='train' requires train_stats")
-    model.eval()
-    for w in (variables if isinstance(variables, (list, tuple)) else [variables]):
-        if isinstance(w, nn.Module):
-            w.eval()
-        elif w is not None and not isinstance(w, Mapping):
-            raise TypeError(f"variables entries must be state_dicts or modules, got {type(w)}")
-
-
-def level_program(model: nn.Module, variables, i: int, current: torch.Tensor, data: Dict,
-                  res: int, stats_mode: str = "scene", train_stats: Optional[NormStats] = None,
-                  coarse_tile=20, overlap=False, symmetrize: bool = False,
-                  refine_cycles: int = 0, amp=None,
-                  use_kernels: bool | None = None,
-                  scene_chunk: int | None = None,
-                  tile_devices=None) -> torch.Tensor:
-    """Level ``i`` of the cascade, to ``res``, on ``current`` (one field or a
-    scene batch) with ``data``'s f and theta at ``res`` (and its u, for the
-    oracle stats), then the level's correction ``amp`` if given. A scene
-    batch runs ``scene_chunk`` scenes per model call (default
-    :func:`default_scene_chunk`); ``tile_devices`` (a device list or a
-    :class:`TileSplit`) splits each call's tiles over devices. Runs under
-    ``torch.no_grad()``; :func:`check_cascade_args` comes first.
+def level_program(plan: CascadePlan, level: CascadeLevel, current: torch.Tensor,
+                  data: Dict) -> torch.Tensor:
+    """``level`` of ``plan`` on ``current`` (one field or a scene batch) with
+    ``data``'s f and theta at the level's resolution (and its u, for the
+    oracle stats), then the level's gains if it has them. A scene batch runs
+    ``plan.scene_chunk`` scenes per model call (default
+    :func:`default_scene_chunk`); the plan's :class:`TileSplit` splits each
+    call's tiles over devices. Runs under ``torch.no_grad()``.
 
     One scene on a card, with its tiles on its own device, is replayed as a
     CUDA graph from the third call with the same key on
     (:mod:`~superresolution_for_pdes_tpu_torch.cascade.graphs`), with the
     same bits; a scene batch, CPU tensors and a split over other devices run
     eagerly."""
-    split = _tile_split(tile_devices)
-    tile, ov = _level_tile(coarse_tile, i), _level_overlap(overlap, i)
-    weights = _level_weights(variables, i)
+    res, stats_mode = level.res, plan.stats_mode
     inputs = (current, data["f"][res], data["theta"][res],
               data["u"][res] if stats_mode == "oracle" else None)
 
     def program(current, f, theta, oracle):
-        if stats_mode == "oracle":
-            source, kind = oracle, "field"
-        elif stats_mode == "scene":
-            source, kind = current, "field"
-        elif stats_mode == "train":
-            source, kind = train_stats, "precomputed"
-        else:
-            source, kind = None, "per_tile"
+        source = oracle if stats_mode == "oracle" else current
 
         def body(sl):
-            return _level_body(model, weights, current[sl], f[sl], theta[sl],
-                               source[sl] if kind == "field" else source, tile, ov, kind,
-                               symmetrize, refine_cycles, use_kernels, split)
+            return _level_body(plan, level, current[sl], f[sl], theta[sl], source[sl])
 
         if current.ndim == 2:
             out = body(slice(None))
         else:
             n = current.shape[0]
-            chunk = scene_chunk or default_scene_chunk(n, current.shape[-1], tile, ov, symmetrize)
+            chunk = plan.scene_chunk or default_scene_chunk(
+                n, current.shape[-1], level.coarse_tile, level.overlap, plan.symmetrize)
             parts = [body(slice(s, s + chunk)) for s in range(0, n, chunk)]
             out = parts[0] if len(parts) == 1 else torch.cat(parts)
-        return out if amp is None else apply_level_correction(out, amp)
+        return out if level.gains is None else apply_level_correction(out, level.gains)
 
     with torch.no_grad(), span("cascade.level", res):
-        read = [amp] + (list(vars(train_stats).values()) if stats_mode == "train" else [])
-        key = LEVEL_GRAPHS.key(model, weights, i, inputs,
-                               (stats_mode, tile, ov, symmetrize, refine_cycles, use_kernels),
-                               read, None if split is None else split.devices)
+        read = [level.gains] + (list(vars(plan.train_stats).values())
+                                if stats_mode == "train" else [])
+        key = LEVEL_GRAPHS.key(plan.model, level.weights, level.index, inputs,
+                               (plan.settings, level.settings), read,
+                               None if plan.split is None else plan.split.devices)
         if key is None:
             return program(*inputs)
-        return LEVEL_GRAPHS.run(key, i, program, inputs)
+        return LEVEL_GRAPHS.run(key, level.index, program, inputs)
 
 
-def _tile_split(tile_devices) -> Optional[TileSplit]:
-    if tile_devices is None or isinstance(tile_devices, TileSplit):
-        return tile_devices
-    return TileSplit(tile_devices)
-
-
-def _sync(t: torch.Tensor) -> None:
-    """Wait for the device work that produced ``t``."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+def _level_fields(plan: CascadePlan, data: Dict,
+                  current: torch.Tensor) -> Iterator[Tuple[int, torch.Tensor]]:
+    """``(resolution, field)`` of each level of ``plan`` in turn, from
+    ``current``."""
+    for level in plan.levels:
+        current = level_program(plan, level, current, data)
+        yield level.res, current
 
 
 def ml_cascade_stepwise(
@@ -363,20 +379,19 @@ def ml_cascade_stepwise(
     so the cumulative sum of the level times is the time to reach each
     resolution from one pass. The fields are :func:`ml_cascade`'s, bit for
     bit (arguments as there)."""
-    check_cascade_args(model, variables, stats_mode, train_stats)
-    split = _tile_split(tile_devices)
-    current = data["u"][start_resolution]
+    plan = plan_cascade(
+        model, variables, start_resolution, target_resolution, stats_mode=stats_mode,
+        train_stats=train_stats, coarse_tile=coarse_tile, overlap=overlap,
+        symmetrize=symmetrize, refine_cycles=refine_cycles, amp_levels=amp_levels,
+        use_kernels=use_kernels, scene_chunk=scene_chunk, tile_devices=tile_devices)
     outs: Dict[int, torch.Tensor] = {}
     times: Dict[int, float] = {}
-    for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
-        t0 = time.perf_counter()
-        current = level_program(
-            model, variables, i, current, data, res, stats_mode, train_stats, coarse_tile,
-            overlap, symmetrize, refine_cycles,
-            None if amp_levels is None else amp_levels[i], use_kernels, scene_chunk, split)
-        _sync(current)
+    t0 = time.perf_counter()
+    for res, current in _level_fields(plan, data, data["u"][start_resolution]):
+        synchronize(current.device)
         times[res] = time.perf_counter() - t0
         outs[res] = current
+        t0 = time.perf_counter()
     return outs, times
 
 
@@ -402,9 +417,8 @@ def warmup_cascade_stepwise(model: nn.Module, variables, data: Dict, target_reso
 
         load_kernels()
     for _ in range(2 if u0.is_cuda and (u0.ndim == 2 or len(u0) == 1) else 1):
-        fields, _ = ml_cascade_stepwise(model, variables, first, target_resolution,
-                                        start_resolution=start_resolution, **kwargs)
-    _sync(fields[max(fields)])
+        ml_cascade_stepwise(model, variables, first, target_resolution,
+                            start_resolution=start_resolution, **kwargs)
 
 
 def ml_cascade(
@@ -439,18 +453,14 @@ def ml_cascade(
     ``tile_devices`` splits each call's tiles over a device list
     (:class:`TileSplit`).
     """
-    check_cascade_args(model, variables, stats_mode, train_stats)
-    split = _tile_split(tile_devices)
+    plan = plan_cascade(
+        model, variables, start_resolution, target_resolution, stats_mode=stats_mode,
+        train_stats=train_stats, coarse_tile=coarse_tile, overlap=overlap,
+        symmetrize=symmetrize, refine_cycles=refine_cycles, amp_levels=amp_levels,
+        use_kernels=use_kernels, scene_chunk=scene_chunk, tile_devices=tile_devices)
     current = data["u"][start_resolution]
     with span("cascade", 1 if current.ndim == 2 else current.shape[0]):
-        outs: Dict[int, torch.Tensor] = {}
-        for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
-            current = level_program(
-                model, variables, i, current, data, res, stats_mode, train_stats, coarse_tile,
-                overlap, symmetrize, refine_cycles,
-                None if amp_levels is None else amp_levels[i], use_kernels, scene_chunk, split)
-            outs[res] = current
-        return outs
+        return dict(_level_fields(plan, data, current))
 
 
 def ml_multi_level_upscale(model, variables, data: Dict, target_resolution: int,
@@ -485,13 +495,14 @@ def fit_amplitudes(model: nn.Module, variables, scenes: Dict, target_resolution:
     per level, ``mean over scenes of std(truth) / std(pred)`` with the
     population std (``correction=0``), each level run on the previous level's
     corrected field."""
-    check_cascade_args(model, variables, stats_mode, train_stats)
+    plan = plan_cascade(model, variables, start_resolution, target_resolution,
+                        stats_mode=stats_mode, train_stats=train_stats,
+                        coarse_tile=coarse_tile, overlap=overlap, symmetrize=symmetrize)
     current = scenes["u"][start_resolution]
     amps = []
-    for i, res in enumerate(level_resolutions(start_resolution, target_resolution)):
-        pred = level_program(model, variables, i, current, scenes, res, stats_mode,
-                             train_stats, coarse_tile, overlap, symmetrize)
-        truth_std = torch.std(scenes["u"][res], dim=(-2, -1), correction=0)
+    for level in plan.levels:
+        pred = level_program(plan, level, current, scenes)
+        truth_std = torch.std(scenes["u"][level.res], dim=(-2, -1), correction=0)
         pred_std = torch.std(pred, dim=(-2, -1), correction=0)
         amp = torch.mean(truth_std / torch.clamp(pred_std, min=1e-30))
         amps.append(amp)

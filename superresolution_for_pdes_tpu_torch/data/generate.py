@@ -62,7 +62,8 @@ def fold_in(gen: torch.Generator, data: int) -> torch.Generator:
     return torch.Generator(device=gen.device).manual_seed(int(state))
 
 
-def _uniform(gen: torch.Generator, shape, lo: float, hi: float, dtype) -> torch.Tensor:
+def uniform(gen: torch.Generator, shape, lo: float, hi: float, dtype) -> torch.Tensor:
+    """``shape`` draws from U(``lo``, ``hi``) in ``dtype`` on ``gen``'s device."""
     return torch.rand(shape, generator=gen, dtype=dtype, device=gen.device) * (hi - lo) + lo
 
 
@@ -73,7 +74,7 @@ def _randint(gen: torch.Generator, shape, lo: int, hi: int) -> torch.Tensor:
 
 def _wave_numbers(gen: torch.Generator, n: int, k_range, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     lo, hi = k_range
-    return _uniform(gen, (n,), lo, hi, dtype), _uniform(gen, (n,), lo, hi, dtype)
+    return uniform(gen, (n,), lo, hi, dtype), uniform(gen, (n,), lo, hi, dtype)
 
 
 def _theta_fields(gen: torch.Generator, n_samples: int, n: int, constant_theta: bool,
@@ -81,7 +82,7 @@ def _theta_fields(gen: torch.Generator, n_samples: int, n: int, constant_theta: 
     """``(n_samples, n, n)`` theta: ones, or pointwise ``U(0.5, 2)``."""
     if constant_theta:
         return torch.ones((n_samples, n, n), dtype=dtype, device=gen.device)
-    return _uniform(gen, (n_samples, n, n), *THETA_RANGE, dtype)
+    return uniform(gen, (n_samples, n, n), *THETA_RANGE, dtype)
 
 
 def _windows(field: torch.Tensor, oy: torch.Tensor, ox: torch.Tensor, size: int) -> torch.Tensor:

@@ -21,3 +21,9 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device``; a no-op off CUDA."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from superresolution_for_pdes_tpu_torch.cascade.upscale import _apply, _dihedral_apply
+from superresolution_for_pdes_tpu_torch.cascade.upscale import apply_model, dihedral_apply
 from superresolution_for_pdes_tpu_torch.data.normalization import (
     NormStats,
     make_model_inputs,
@@ -45,7 +45,7 @@ def predict_dataset(model, variables, data: Dict, stats: Optional[NormStats] = N
     if isinstance(variables, nn.Module):
         variables.eval()
     with torch.no_grad():
-        pred = (_dihedral_apply if symmetrize else _apply)(model, variables, x)
+        pred = (dihedral_apply if symmetrize else apply_model)(model, variables, x)
     return stats.denormalize_u(pred[:, 0])
 
 

@@ -43,6 +43,7 @@ from superresolution_for_pdes_tpu_torch.cascade.upscale import (
     ml_multi_level_upscale,
     warmup_cascade_stepwise,
 )
+from superresolution_for_pdes_tpu_torch.device import synchronize
 from superresolution_for_pdes_tpu_torch.eval.metrics import compute_metrics
 from superresolution_for_pdes_tpu_torch.eval.resolution import calibrate, gains_as_json
 from superresolution_for_pdes_tpu_torch.solver.dst import solve_poisson_dst
@@ -55,12 +56,11 @@ CSV_COLUMNS = ("example", "resolution", "k1", "k2", "ml_mae", "ml_rmse", "ml_rel
 def _timed(fn, device: torch.device) -> Tuple[object, float]:
     """``fn()`` and its wall seconds, after one untimed call, each ending in a
     device synchronisation."""
-    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
     fn()
-    sync()
+    synchronize(device)
     t0 = time.perf_counter()
     out = fn()
-    sync()
+    synchronize(device)
     return out, time.perf_counter() - t0
 
 

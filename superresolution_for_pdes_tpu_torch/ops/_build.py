@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+"""The host side of the hand-written CUDA kernels (``csrc/*.cu``): their
+build and load, the launch helpers and the one registry of launch counts.
 
 Each source is compiled by ``nvcc`` into its own shared library with a plain C
 interface and loaded with ``ctypes`` (no PyTorch headers, so a build takes
@@ -9,10 +10,16 @@ package's ``csrc/`` are built.
 
 The build runs at the first kernel call on a CUDA tensor; nothing here runs at
 import time.
+
+A wrapper counts its launches by dtype (:func:`count_launch`); a kernel
+module reads and resets its own wrappers' counts, and a CUDA graph's replay
+advances every module's (:func:`launch_tally`, :func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -21,7 +28,9 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import NamedTuple
+from typing import Callable, Iterable, Mapping, NamedTuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -92,3 +101,63 @@ def build_all() -> Build:
 def load_library(stem: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<stem>.cu`` (built if needed)."""
     return ctypes.CDLL(str(build_all().libraries[stem]))
+
+
+# ------------------------------------------------------------------ launching
+def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    """``t``'s device address for a C entry point (``NULL`` for ``None``)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def _on(t: torch.Tensor):
+    """``t``'s device made current for a launch, unless it already is."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
+
+
+def launch(wrapper: Callable, entry: Callable, t: torch.Tensor, *args,
+           dtype: torch.dtype = torch.float32) -> None:
+    """``entry(*args, stream)``, a C entry point, on ``t``'s device and its
+    current stream; raises on the cudaError it returns, else counts one
+    launch of ``wrapper``'s kernel for ``dtype``."""
+    with _on(t):
+        code = entry(*args, ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream))
+    if code != 0:
+        raise RuntimeError(f"{wrapper.__module__}.{wrapper.__name__}: CUDA kernel launch "
+                           f"failed with cudaError {code}")
+    count_launch(wrapper, dtype)
+
+
+# --------------------------------------------------------------- launch counts
+_LAUNCHES: collections.Counter = collections.Counter()  # {(wrapper, dtype): launches}
+
+
+def count_launch(wrapper: Callable, dtype: torch.dtype = torch.float32) -> None:
+    """One launch by ``wrapper`` of its kernel instantiated for ``dtype``."""
+    _LAUNCHES[wrapper, dtype] += 1
+
+
+def launch_counts(wrappers: Iterable[Callable],
+                  dtype: torch.dtype = torch.float32) -> dict[str, int]:
+    """Launches of each of ``wrappers`` for ``dtype`` since its last reset,
+    by name."""
+    return {fn.__name__: _LAUNCHES[fn, dtype] for fn in wrappers}
+
+
+def reset_launch_counts(wrappers: Iterable[Callable]) -> None:
+    """Zero every count of ``wrappers``."""
+    wrappers = set(wrappers)
+    for key in [key for key in _LAUNCHES if key[0] in wrappers]:
+        del _LAUNCHES[key]
+
+
+def launch_tally() -> collections.Counter:
+    """Every kernel module's counts (two tallies' difference: the launches between)."""
+    return collections.Counter(_LAUNCHES)
+
+
+def add_launches(delta: Mapping) -> None:
+    """Advance the counts by a difference of two :func:`launch_tally` s (or its
+    negation): a graph's replay runs the launches its capture counted."""
+    _LAUNCHES.update(delta)

@@ -29,8 +29,8 @@ a CPU tensor it runs the plain twin (:func:`plain_apply_operator`,
 :func:`plain_residual`, :func:`plain_jacobi_smooth`,
 :func:`plain_smooth_residual`), which computes the same
 arithmetic in the same order with the port's ``ops/stencil.py``. Each wrapper
-counts its float32 kernel launches in ``.launches`` and its bfloat16 ones in
-``.launches_bf16`` (:func:`launch_counts` reads either); the twins count
+counts its launches, float32 and bfloat16 apart, in the kernels' one registry
+(``ops/_build.py``; :func:`launch_counts` reads either); the twins count
 nothing.
 
 Leading axes are flattened into one batch axis, as the Pallas wrappers do.
@@ -38,7 +38,6 @@ Leading axes are flattened into one batch axis, as the Pallas wrappers do.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Callable, NamedTuple
@@ -46,6 +45,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from superresolution_for_pdes_tpu_torch.ops import _build
+from superresolution_for_pdes_tpu_torch.ops._build import launch, ptr
 from superresolution_for_pdes_tpu_torch.ops.grid import grid_spacing
 from superresolution_for_pdes_tpu_torch.ops.stencil import shift_sum
 
@@ -94,13 +95,6 @@ def _loss_dtype(name: str, *tensors: torch.Tensor) -> torch.dtype:
     return dtypes.pop()
 
 
-def _count_launch(fn, dtype: torch.dtype) -> None:
-    if dtype == torch.bfloat16:
-        fn.launches_bf16 += 1
-    else:
-        fn.launches += 1
-
-
 def _check_device(name: str, u: torch.Tensor) -> None:
     if u.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {u.device}")
@@ -118,26 +112,6 @@ def _vec(n: int, *tensors: torch.Tensor) -> int:
     return int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
-def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _on(t: torch.Tensor):
-    """``t``'s device made current for a launch, unless it already is."""
-    if t.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(t.device)
-
-
-def _raise_on(name: str, code: int) -> None:
-    if code != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {code}")
-
-
 class _Lib(NamedTuple):
     apply_operator: Callable
     pde_loss_forward: Callable
@@ -151,17 +125,14 @@ class _Lib(NamedTuple):
 def _lib() -> _Lib:
     """``csrc/stencil.cu``'s entry points (built at the first call), resolved
     once with their C signatures declared."""
-    from superresolution_for_pdes_tpu_torch.ops._build import load_library
-
-    lib = load_library("stencil")
-    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = _build.load_library("stencil")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
-        "srpde_apply_operator": [ptr, f, ptr, ptr, i, i, f, i, ptr],
-        "srpde_pde_loss_forward": [ptr, ptr, ptr, ptr, i, ptr, i, ptr, i, ptr, ptr, ptr,
-                                   i, i, f, i, i, ptr],
-        "srpde_pde_loss_backward": [ptr, ptr, i, ptr, ptr, i, i, f, i, i, ptr],
-        "srpde_residual": [ptr, f, ptr, ptr, ptr, ptr, i, i, f, f, i, i, ptr],
-        "srpde_jacobi": [ptr, ptr, ptr, i, i, f, f, i, i, ptr],
+        "srpde_apply_operator": [p, f, p, p, i, i, f, i, p],
+        "srpde_pde_loss_forward": [p, p, p, p, i, p, i, p, i, p, p, p, i, i, f, i, i, p],
+        "srpde_pde_loss_backward": [p, p, i, p, p, i, i, f, i, i, p],
+        "srpde_residual": [p, f, p, p, p, p, i, i, f, f, i, i, p],
+        "srpde_jacobi": [p, p, p, i, i, f, f, i, i, p],
         "srpde_max_fused_iters": [],
     }
     for name, argtypes in signatures.items():
@@ -293,12 +264,9 @@ def kernel_apply_operator(theta, u: torch.Tensor, h: float | None = None) -> tor
     _check_cuda("kernel_apply_operator", u, *fields.values())
     n = u.shape[-1]
     out = torch.empty_like(u)
-    with _on(u):
-        code = _lib().apply_operator(
-            _ptr(None if scalar else theta), float(theta) if scalar else 0.0, _ptr(u), _ptr(out),
-            _batch(u), n, float(_h2(n, h)), _vec(n, u, out, *fields.values()), _stream(u))
-    _raise_on("kernel_apply_operator", code)
-    kernel_apply_operator.launches += 1
+    launch(kernel_apply_operator, _lib().apply_operator, u,
+           ptr(None if scalar else theta), float(theta) if scalar else 0.0, ptr(u), ptr(out),
+           _batch(u), n, float(_h2(n, h)), _vec(n, u, out, *fields.values()))
     return out
 
 
@@ -346,13 +314,10 @@ def kernel_pde_loss_forward(pred: torch.Tensor, theta: torch.Tensor, f: torch.Te
     partial = torch.empty(batch * n, **f32)  # >= blocks
     s = torch.empty(theta.shape, **f32) if seed else None
     vec = _vec(n, pred, theta, f, *([s] if seed else []))
-    with _on(theta):
-        code = _lib().pde_loss_forward(
-            _ptr(pred), _ptr(theta), _ptr(f), _ptr(um), um_s, _ptr(us), us_s, _ptr(fs), fs_s,
-            _ptr(s), _ptr(partial), _ptr(loss), batch, n, float(_h2(n, h)), vec,
-            int(dtype == torch.bfloat16), _stream(theta))
-    _raise_on(name, code)
-    _count_launch(kernel_pde_loss_forward, dtype)
+    launch(kernel_pde_loss_forward, _lib().pde_loss_forward, theta,
+           ptr(pred), ptr(theta), ptr(f), ptr(um), um_s, ptr(us), us_s, ptr(fs), fs_s,
+           ptr(s), ptr(partial), ptr(loss), batch, n, float(_h2(n, h)), vec,
+           int(dtype == torch.bfloat16), dtype=dtype)
     return loss, s
 
 
@@ -377,12 +342,9 @@ def kernel_pde_loss_backward(seed: torch.Tensor, u_std: torch.Tensor, g_out: tor
     n, batch = seed.shape[-1], _batch(seed)
     ((us, us_s),) = _stats_for_kernel(name, seed, batch, u_std=u_std)
     grad = torch.empty(seed.shape, dtype=dtype, device=seed.device)
-    with _on(seed):
-        code = _lib().pde_loss_backward(
-            _ptr(seed), _ptr(us), us_s, _ptr(g_out), _ptr(grad), batch, n, float(_h2(n, h)),
-            _vec(n, seed, grad), int(dtype == torch.bfloat16), _stream(seed))
-    _raise_on(name, code)
-    _count_launch(kernel_pde_loss_backward, dtype)
+    launch(kernel_pde_loss_backward, _lib().pde_loss_backward, seed,
+           ptr(seed), ptr(us), us_s, ptr(g_out), ptr(grad), batch, n, float(_h2(n, h)),
+           _vec(n, seed, grad), int(dtype == torch.bfloat16), dtype=dtype)
     return grad
 
 
@@ -401,13 +363,10 @@ def kernel_residual(theta, u: torch.Tensor, f: torch.Tensor,
     _check_cuda("kernel_residual", u, *fields.values())
     n = u.shape[-1]
     r = torch.empty_like(u)
-    with _on(u):
-        code = _lib().residual(
-            _ptr(None if scalar else theta), float(theta) if scalar else 0.0, _ptr(u), _ptr(f),
-            _ptr(None), _ptr(r), _batch(u), n, float(_h2(n, h)), 0.0, 0,
-            _vec(n, u, r, *fields.values()), _stream(u))
-    _raise_on("kernel_residual", code)
-    kernel_residual.launches += 1
+    launch(kernel_residual, _lib().residual, u,
+           ptr(None if scalar else theta), float(theta) if scalar else 0.0, ptr(u), ptr(f),
+           ptr(None), ptr(r), _batch(u), n, float(_h2(n, h)), 0.0, 0,
+           _vec(n, u, r, *fields.values()))
     return r
 
 
@@ -428,18 +387,14 @@ def kernel_jacobi_smooth(u: torch.Tensor, b: torch.Tensor, h: float | None = Non
     h2 = _h2(n, h)
     scale = float(_jacobi_scale(h2, omega))
     lib = _lib()
-    with _on(u):
-        stream = _stream(u)
-        done = 0
-        while done < iters:
-            k = min(lib.max_fused_iters, iters - done)
-            out = torch.empty_like(u)
-            code = lib.jacobi(_ptr(u), _ptr(b), _ptr(out), batch, n, float(h2), scale, k,
-                              _vec(n, u, b, out), stream)
-            _raise_on("kernel_jacobi_smooth", code)
-            kernel_jacobi_smooth.launches += 1
-            u = out
-            done += k
+    done = 0
+    while done < iters:
+        k = min(lib.max_fused_iters, iters - done)
+        out = torch.empty_like(u)
+        launch(kernel_jacobi_smooth, lib.jacobi, u, ptr(u), ptr(b), ptr(out), batch, n,
+               float(h2), scale, k, _vec(n, u, b, out))
+        u = out
+        done += k
     return u if iters else u.clone()
 
 
@@ -468,13 +423,9 @@ def kernel_smooth_residual(u: torch.Tensor, b: torch.Tensor, h: float | None = N
     h2 = _h2(n, h)
     u_out = torch.empty_like(u) if fused else None
     r = torch.empty_like(u)
-    with _on(u):
-        code = lib.residual(
-            _ptr(None), -1.0, _ptr(u), _ptr(b), _ptr(u_out), _ptr(r), _batch(u), n, float(h2),
-            float(_jacobi_scale(h2, omega)), fused,
-            _vec(n, u, b, r, *([u_out] if fused else [])), _stream(u))
-    _raise_on(name, code)
-    kernel_smooth_residual.launches += 1
+    launch(kernel_smooth_residual, lib.residual, u,
+           ptr(None), -1.0, ptr(u), ptr(b), ptr(u_out), ptr(r), _batch(u), n, float(h2),
+           float(_jacobi_scale(h2, omega)), fused, _vec(n, u, b, r, *([u_out] if fused else [])))
     return (u_out if fused else u), r
 
 
@@ -482,10 +433,7 @@ KERNELS = (kernel_apply_operator, kernel_pde_loss_forward, kernel_pde_loss_backw
            kernel_residual, kernel_jacobi_smooth, kernel_smooth_residual)
 
 
-def reset_launch_counts() -> None:
-    for fn in KERNELS:
-        fn.launches = 0
-        fn.launches_bf16 = 0  # only the loss kernels have a bfloat16 instantiation
+reset_launch_counts = functools.partial(_build.reset_launch_counts, KERNELS)
 
 
 def launch_counts(dtype: torch.dtype = torch.float32) -> dict[str, int]:
@@ -493,22 +441,4 @@ def launch_counts(dtype: torch.dtype = torch.float32) -> dict[str, int]:
     (``dtype=torch.bfloat16``) of the bfloat16 instantiations."""
     if dtype not in LOSS_DTYPES:
         raise ValueError(f"launch_counts: float32 or bfloat16, not {dtype}")
-    bf16 = dtype == torch.bfloat16
-    return {fn.__name__: fn.launches_bf16 if bf16 else fn.launches for fn in KERNELS}
-
-
-def launch_tally() -> tuple[int, ...]:
-    """Every wrapper's float32 and bfloat16 launch counts, flat, in
-    :data:`KERNELS`' order (two tallies' difference is the launches between)."""
-    return tuple(n for fn in KERNELS for n in (fn.launches, fn.launches_bf16))
-
-
-def add_launches(delta: tuple[int, ...]) -> None:
-    """Advance the counts by a difference of two :func:`launch_tally` s: a
-    captured CUDA graph's replay runs the launches its capture counted."""
-    for fn, n, n_bf16 in zip(KERNELS, delta[::2], delta[1::2]):
-        fn.launches += n
-        fn.launches_bf16 += n_bf16
-
-
-reset_launch_counts()
+    return _build.launch_counts(KERNELS, dtype)

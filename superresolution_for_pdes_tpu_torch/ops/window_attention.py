@@ -28,9 +28,10 @@ CPU it runs :func:`plain_window_attention`, the same arithmetic in PyTorch (a
 gather at the windows' token positions, matmuls, bias, mask, softmax, the
 inverse gather), differentiated by autograd.
 
-The launches are counted in ``.launches`` on :func:`kernel_forward` and
-:func:`kernel_backward` (a backward call is two device launches: the kernel
-and the fixed-order sum of the bias table's partials).
+:func:`kernel_forward` and :func:`kernel_backward` count their launches in
+the kernels' one registry (``ops/_build.py``; :func:`launch_counts`); a
+backward call is two device launches: the kernel and the fixed-order sum of
+the bias table's partials.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ import ctypes
 import functools
 import torch
 
-from superresolution_for_pdes_tpu_torch.ops.stencil_kernels import _on, _ptr, _raise_on, _stream
+from superresolution_for_pdes_tpu_torch.ops import _build
+from superresolution_for_pdes_tpu_torch.ops._build import launch, ptr
 from superresolution_for_pdes_tpu_torch.utils.profiling import span
 
 KERNEL_SHAPES = frozenset({(8, 30), (4, 6)})  # (window, head size) of the kernels' instantiations
@@ -110,13 +112,11 @@ def plain_window_attention(qkv: torch.Tensor, table: torch.Tensor, heads: int, w
 def _lib() -> ctypes.CDLL:
     """``csrc/window_attention.cu``'s library (built at the first call), its
     entry points' C signatures declared."""
-    from superresolution_for_pdes_tpu_torch.ops._build import load_library
-
-    lib = load_library("window_attention")
-    ptr, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    dims = [i, i, i, i, i, i, i, f, ptr]  # batch, hp, wp, heads, window, head size, shift, scale
-    lib.srpde_window_attention_forward.argtypes = [ptr] * 4 + dims
-    lib.srpde_window_attention_backward.argtypes = [ptr] * 7 + dims
+    lib = _build.load_library("window_attention")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    dims = [i, i, i, i, i, i, i, f, p]  # batch, hp, wp, heads, window, head size, shift, scale
+    lib.srpde_window_attention_forward.argtypes = [p] * 4 + dims
+    lib.srpde_window_attention_backward.argtypes = [p] * 7 + dims
     for fn in (lib.srpde_window_attention_forward, lib.srpde_window_attention_backward):
         fn.restype = i
     return lib
@@ -147,12 +147,8 @@ def kernel_forward(qkv: torch.Tensor, table: torch.Tensor, heads: int, window: i
     b, hp, wp, d, windows = _dims(name, qkv, table, heads, window)
     out = qkv.new_empty(b, hp, wp, heads * d)
     lse = qkv.new_empty(windows * heads, window * window)
-    with _on(qkv):
-        code = _lib().srpde_window_attention_forward(
-            _ptr(qkv), _ptr(table), _ptr(out), _ptr(lse), b, hp, wp, heads, window, d, shift,
-            scale, _stream(qkv))
-    _raise_on(f"window attention {name}", code)
-    kernel_forward.launches += 1
+    launch(kernel_forward, _lib().srpde_window_attention_forward, qkv,
+           ptr(qkv), ptr(table), ptr(out), ptr(lse), b, hp, wp, heads, window, d, shift, scale)
     return out, lse
 
 
@@ -165,24 +161,15 @@ def kernel_backward(grad_out: torch.Tensor, qkv: torch.Tensor, lse: torch.Tensor
     dqkv = torch.empty_like(qkv)
     dtable = torch.empty_like(table)
     partial = qkv.new_empty(windows, table.numel())
-    with _on(qkv):
-        code = _lib().srpde_window_attention_backward(
-            _ptr(grad_out), _ptr(qkv), _ptr(lse), _ptr(table), _ptr(dqkv), _ptr(partial),
-            _ptr(dtable), b, hp, wp, heads, window, d, shift, scale, _stream(qkv))
-    _raise_on(f"window attention {name}", code)
-    kernel_backward.launches += 1
+    launch(kernel_backward, _lib().srpde_window_attention_backward, qkv,
+           ptr(grad_out), ptr(qkv), ptr(lse), ptr(table), ptr(dqkv), ptr(partial),
+           ptr(dtable), b, hp, wp, heads, window, d, shift, scale)
     return dqkv, dtable
 
 
-def reset_launch_counts() -> None:
-    kernel_forward.launches = kernel_backward.launches = 0
-
-
-def launch_counts() -> dict[str, int]:
-    return {fn.__name__: fn.launches for fn in (kernel_forward, kernel_backward)}
-
-
-reset_launch_counts()
+KERNELS = (kernel_forward, kernel_backward)
+reset_launch_counts = functools.partial(_build.reset_launch_counts, KERNELS)
+launch_counts = functools.partial(_build.launch_counts, KERNELS)
 
 
 @torch.library.custom_op("swinir::window_scaled_dot_product_attention", mutates_args=(),

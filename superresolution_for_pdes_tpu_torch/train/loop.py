@@ -51,7 +51,7 @@ from superresolution_for_pdes_tpu_torch.data.normalization import (
     per_sample_stats,
 )
 from superresolution_for_pdes_tpu_torch.data.pipeline import epoch_batch_indices, stratified_split
-from superresolution_for_pdes_tpu_torch.device import resolve_device
+from superresolution_for_pdes_tpu_torch.device import resolve_device, synchronize
 from superresolution_for_pdes_tpu_torch.parallel import data as dpar
 from superresolution_for_pdes_tpu_torch.physics.loss import pde_residual_loss
 from superresolution_for_pdes_tpu_torch.train.checkpoint import (
@@ -261,11 +261,6 @@ def _split(dataset: Arrays, config: TrainConfig) -> Tuple[np.ndarray, np.ndarray
     return train_idx, val_idx
 
 
-def _synchronize(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _state_snapshot(model: nn.Module, optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
     return {"model": {k: v.detach().clone() for k, v in model.state_dict().items()},
             "optimizer": copy.deepcopy(optimizer.state_dict())}
@@ -471,7 +466,7 @@ def _train_epochs(run: _Run, start_epoch: int, dataset_generator, prepare, train
             train_arrays = prepare(fresh)
             n_train = int(fresh["u_fine"].shape[0])
             del fresh
-            _synchronize(device)
+            synchronize(device)
             regen_s = time.perf_counter() - t0
             last_gen_epoch = epoch
         idx_matrix = epoch_batch_indices(epoch_generator(config.seed + 1, epoch, device),

@@ -37,7 +37,7 @@ from typing import Iterator, List, NamedTuple, Optional
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-from superresolution_for_pdes_tpu_torch.device import resolve_device
+from superresolution_for_pdes_tpu_torch.device import resolve_device, synchronize
 
 SPAN_BUFFER = 65536  # records kept; the oldest go first
 
@@ -123,7 +123,6 @@ def device_trace(log_dir: str | Path = "results/trace", device=None) -> Iterator
     path = Path(log_dir) / f"trace_{os.getpid()}_{time.time_ns()}.json"
     with profile(activities=activities) as prof:
         yield path
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        synchronize(dev)
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))

@@ -247,10 +247,31 @@ def test_interpolation_baselines_match_jax(scenes):
 
 
 def test_level_schedules_and_errors(experts):
-    assert upscale._level_tile((40, 80), 3) == 80 and upscale._level_tile(20, 2) == 20
-    assert upscale._level_overlap([True, False], 0) and not upscale._level_overlap(False, 1)
+    """The plan's one record per level: a coarse tile, an overlap or weights
+    given once serve every level, and given as a list or tuple, one per
+    level, trailing levels reuse the last entry; gains are one per level (too
+    few raise). A bad ``stats_mode``, ``"train"`` without its stats and
+    weights that are neither a state_dict nor a module raise."""
     _, _, tmodel, sds = experts
+    gains = tuple(torch.full((), 1.0 + i) for i in range(4))
+    plan = upscale.plan_cascade(tmodel, [sds[0], sds[1]], 40, 640, coarse_tile=(40, 80),
+                                overlap=[True, False], amp_levels=gains)
+    assert [lv.index for lv in plan.levels] == [0, 1, 2, 3]
+    assert [lv.res for lv in plan.levels] == [80, 160, 320, 640]
+    assert [lv.coarse_tile for lv in plan.levels] == [40, 80, 80, 80]
+    assert [lv.overlap for lv in plan.levels] == [True, False, False, False]
+    assert [lv.weights is sds[min(i, 1)] for i, lv in enumerate(plan.levels)] == [True] * 4
+    assert [lv.gains is g for lv, g in zip(plan.levels, gains)] == [True] * 4
+    once = upscale.plan_cascade(tmodel, sds[2], 40, 320, coarse_tile=20)
+    assert [(lv.coarse_tile, lv.overlap, lv.weights is sds[2], lv.gains)
+            for lv in once.levels] == [(20, False, True, None)] * 3
+    with pytest.raises(IndexError):
+        upscale.plan_cascade(tmodel, sds[0], 40, 640, amp_levels=gains[:2])
     with pytest.raises(ValueError):
         upscale.ml_cascade(tmodel, sds[0], {}, 80, stats_mode="nope")
     with pytest.raises(ValueError):
         upscale.ml_cascade(tmodel, sds[0], {}, 80, stats_mode="train")
+    with pytest.raises(ValueError):
+        upscale.fit_amplitudes(tmodel, sds[0], {}, 80, stats_mode="train")
+    with pytest.raises(TypeError):
+        upscale.plan_cascade(tmodel, [sds[0], torch.zeros(3)], 40, 160)

@@ -3,8 +3,10 @@ as CUDA graphs, and the cache's bookkeeping. On the CPU no level is ever
 captured; the cache's sightings, cascades and eviction are held here with a
 stand-in for the capture, and the capture itself on the card
 (``tests/test_torch_cuda.py``; SwinIR's levels here, marked ``cuda``). Also
-the modal correction's band index kept on the device, and the stencil launch
-tally a replay advances."""
+every cascade setting reaching a level's key, the modal correction's band
+index kept on the device, and the kernels' launch tally a replay advances."""
+
+import inspect
 
 import pytest
 import torch
@@ -14,6 +16,8 @@ from superresolution_for_pdes_tpu_torch.cascade import graphs, modal
 from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
 from superresolution_for_pdes_tpu_torch.models import AttentionUNet, SwinIR
 from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+from superresolution_for_pdes_tpu_torch.ops import window_attention as wa
+from superresolution_for_pdes_tpu_torch.ops._build import add_launches, count_launch, launch_tally
 from superresolution_for_pdes_tpu_torch.utils.profiling import clear_spans, recorded_spans
 
 from torch_port_helpers import TINY
@@ -71,16 +75,60 @@ def test_modal_correction_keeps_its_band_index_on_the_device(kind):
     assert torch.equal(first, second)
 
 
-def test_launch_tally_advances_and_restores_the_counters():
-    before = sk.launch_counts()
-    tally = sk.launch_tally()
-    delta = tuple(range(1, len(tally) + 1))
-    sk.add_launches(delta)
-    assert sk.launch_tally() == tuple(a + d for a, d in zip(tally, delta))
-    assert sk.launch_counts(torch.bfloat16)["kernel_pde_loss_forward"] == \
-        tally[3] + delta[3]
-    sk.add_launches(tuple(-d for d in delta))
-    assert sk.launch_counts() == before and sk.launch_tally() == tally
+# One other value for each keyword of ``ml_cascade`` that sets how a level
+# computes; the keywords not here are the key's apart: the module and the
+# data by identity and shape, tensors by address, a split by its devices.
+OTHER_VALUE = {"stats_mode": "tile", "coarse_tile": 40, "overlap": True, "symmetrize": True,
+               "refine_cycles": 1, "use_kernels": False, "scene_chunk": 1}
+KEYED_APART = {"model", "variables", "data", "target_resolution", "start_resolution",
+               "train_stats", "amp_levels", "tile_devices"}
+
+
+@pytest.mark.parametrize("name", [p for p in inspect.signature(ml_cascade).parameters
+                                  if p not in KEYED_APART])
+def test_every_setting_reaches_the_level_key(name, monkeypatch):
+    """Changing one setting of ``ml_cascade`` changes the settings that every
+    level's graph key hashes, so a replay never returns a graph captured
+    under another setting. A keyword added to ``ml_cascade`` and to neither
+    table above fails here."""
+    seen = []
+
+    def key(self, model, weights, level, inputs, settings, read, tile_devices=None):
+        seen.append(settings)
+        return None  # run eagerly
+
+    monkeypatch.setattr(graphs.LevelGraphs, "key", key)
+    model = AttentionUNet(in_channels=5, generator=torch.Generator().manual_seed(0), **TINY)
+    data = _scene(())
+    ml_cascade(model, None, data, 160, stats_mode="scene")
+    base = seen[:]
+    seen.clear()
+    ml_cascade(model, None, data, 160, **{"stats_mode": "scene", name: OTHER_VALUE[name]})
+    assert len(seen) == len(base) == 2
+    assert all(a != b for a, b in zip(base, seen))
+
+
+@pytest.mark.parametrize("module, wrapper, dtype", [
+    (sk, sk.kernel_smooth_residual, torch.float32),
+    (sk, sk.kernel_pde_loss_forward, torch.bfloat16),
+    (wa, wa.kernel_forward, torch.float32),
+], ids=["stencil", "stencil_bf16", "window_attention"])
+def test_launch_tally_advances_and_restores_the_counters(module, wrapper, dtype):
+    """As a capture and its replays use the tally: the launches counted while
+    capturing, taken back (captured, not run), leave a kernel module's own
+    counts as they were; added back (a replay), they advance them."""
+    def counts():
+        return module.launch_counts(dtype) if module is sk else module.launch_counts()
+
+    before, tally = counts(), launch_tally()
+    count_launch(wrapper, dtype)
+    delta = launch_tally() - tally
+    undo = {k: -n for k, n in delta.items()}
+    add_launches(undo)
+    assert counts() == before and launch_tally() == tally
+    add_launches(delta)
+    assert counts() == {**before, wrapper.__name__: before[wrapper.__name__] + 1}
+    add_launches(undo)
 
 
 class _Stand:
