@@ -136,7 +136,12 @@ Phases (any failed check raises, and the script exits non-zero):
    time, time per call, the twin's, its bound and SDPA on heads padded to 32
    as the yardstick; then the pair's launches on its main path: a
    published-width SwinIR's train step at (32, 40^2), in float32 and in
-   bfloat16 (autocast), with the counts set to 0 just before each.
+   bfloat16 (autocast), with the counts set to 0 just before each; in the
+   same steps one token reduction (``csrc/token_reduce.cu``) a linear's bias
+   gradient (144) and one a LayerNorm's weight and bias (74), and their
+   device time a step beside the bytes they read; alone at the training
+   shape, the reductions against a float64 sum, with device time, time per
+   call, twin, bound and ATen's column sums as the yardstick.
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true, "device":
@@ -1674,12 +1679,16 @@ def phase_window_attention(dev: torch.device, smi: str) -> dict:
     step of a published-width SwinIR at (32, 40^2) through ``train_step``, in
     float32 and in bfloat16, each with the counts set to 0 just before it:
     one forward and one backward call a block, 36 each, and the pair's device
-    time a block inside that step (profiler)."""
+    time a block inside that step (profiler); in the same steps one token
+    reduction a linear (144) and a LayerNorm (74), and their device time a
+    step beside the bytes they must read (``token_reduce_timing`` times them
+    alone)."""
     import torch.nn.functional as F
 
     from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
     from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
     from superresolution_for_pdes_tpu_torch.models import SwinIR
+    from superresolution_for_pdes_tpu_torch.ops import token_reduce as tr
     from superresolution_for_pdes_tpu_torch.ops import window_attention as wa
     from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
 
@@ -1755,11 +1764,15 @@ def phase_window_attention(dev: torch.device, smi: str) -> dict:
     blocks = sum(len(layer.residual_group.blocks) for layer in model.layers)
     opt = loop.make_optimizer(model, TrainConfig())
     stats = NormStats.from_dataset(generate_mixed_dataset(5, 16, 16, theta="mixed", device=dev))
-    out["launches_by_path"] = {}
+    linears = [m for m in model.modules() if isinstance(m, torch.nn.Linear)]
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.LayerNorm)]
+    out["launches_by_path"], out["token_reduce"] = {}, token_reduce_timing(dev, smi)
+    out["token_reduce"]["launches_by_path"] = {}
     for dtype in (torch.float32, torch.bfloat16):
         batch = step_batch(dev, stats, True, True, dtype=dtype)
         check(tuple(batch["x"].shape) == (32, 5, 40, 40), f"SwinIR batch {batch['x'].shape}")
         wa.reset_launch_counts()
+        tr.reset_launch_counts()
         loss = float(loop.train_step(model, opt, batch, stats, 0.0, 1.0))
         torch.cuda.synchronize()
         counts = wa.launch_counts()
@@ -1769,13 +1782,112 @@ def phase_window_attention(dev: torch.device, smi: str) -> dict:
         check(math.isfinite(loss), f"{path}: loss {loss}")
         check(counts == {"kernel_forward": blocks, "kernel_backward": blocks},
               f"{path}: one forward and one backward call a block ({blocks}), got {counts}")
+        # the linears' bias sums take the linears' dtype (bf16 under autocast),
+        # the LayerNorms' float32 (autocast runs LayerNorm in float32)
+        reductions = {k: tr.launch_counts(torch.float32)[k] + tr.launch_counts(torch.bfloat16)[k]
+                      for k in tr.launch_counts()}
+        out["token_reduce"]["launches_by_path"][path] = reductions
+        log(f"[token reductions] {path}: calls {reductions} ({len(linears)} linears, "
+            f"{len(norms)} LayerNorms)")
+        check(reductions == {"kernel_bias_grad": len(linears),
+                             "kernel_layer_norm_affine_grad": len(norms)},
+              f"{path}: one bias sum a linear ({len(linears)}) and one reduction a LayerNorm "
+              f"({len(norms)}), got {reductions}")
         _, busy, rows = profile(lambda: loop.train_step(model, opt, batch, stats, 0.0, 1.0),
                                 reps=5)
         pair = sum(r[1] for r in rows if "window_attention" in r[0] or "bias_grad_sum" in r[0])
         out[f"in_step_device_ms_per_block {str(dtype)[6:]}"] = pair / blocks
         log(f"[window attention] {path}: the pair's device time {pair:.3f} ms a step, "
             f"{pair / blocks:.4f} ms a block, of {busy:.3f} ms busy; on {smi}")
+        tokens = 32 * 40 * 40
+        nbytes = sum(tokens * m.out_features * dtype.itemsize for m in linears) + sum(
+            tokens * (2 * m.weight.numel() * 4 + 8) for m in norms)
+        reduced = sum(r[1] for r in rows if "token_reduce" in r[0])
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        out["token_reduce"][f"in_step {str(dtype)[6:]}"] = dict(
+            device_ms=reduced, bound_ms=bound_ms, bytes=nbytes,
+            roofline_pct=100.0 * bound_ms / reduced)
+        log(f"[token reductions] {path}: device time {reduced:.3f} ms a step against a bound of "
+            f"{bound_ms:.3f} ms ({nbytes / 1e9:.2f} GB read), {100 * bound_ms / reduced:.1f}% "
+            f"of it; on {smi}")
     out["launches"] = out["launches_by_path"][next(iter(out["launches_by_path"]))]
+    out["token_reduce"]["launches"] = out["token_reduce"]["launches_by_path"][
+        next(iter(out["token_reduce"]["launches_by_path"]))]
+    return out
+
+
+def token_reduce_timing(dev: torch.device, smi: str) -> dict:
+    """SwinIR's token reductions (``csrc/token_reduce.cu``) alone at the
+    training shape (32 maps of 40^2 = 51,200 tokens): the bias sum at the
+    linears' widths (180, 360, 540) and a LayerNorm's weight and bias
+    gradients at 180, float32: the kernel against the float64 sum, its device
+    time (both launches), time per call, the plain twin's (for the bias sum
+    this is ``torch.sum`` itself), its bound (bytes read at 3.35 TB/s), and
+    as the ``library_ms`` yardstick ATen's own column sums (``g.sum(0)``;
+    ``native_layer_norm_backward`` asked for the weight and bias alone, its
+    GammaBeta kernel). Each timed call reads the next of a ring of inputs
+    larger than twice the 50 MB L2, so every call reads from HBM, as in a
+    train step."""
+    from superresolution_for_pdes_tpu_torch.ops import token_reduce as tr
+
+    tokens = 32 * 40 * 40
+    gen = torch.Generator(device=dev).manual_seed(7)
+    out = {"max_rel_err": 0.0}
+    for what, c in (("bias", 180), ("bias", 360), ("bias", 540), ("layer_norm", 180)):
+        nbytes = 4 * tokens * c if what == "bias" else 8 * tokens * c + 8 * tokens
+        ring = []
+        for _ in range(-(-100_000_000 // nbytes) + 1):
+            g = torch.randn(tokens, c, device=dev, generator=gen)
+            x = torch.randn(tokens, c, device=dev, generator=gen) + 0.5
+            _, mean, rstd = torch.native_layer_norm(x, (c,), None, None, 1e-5)
+            ring.append((g, x, mean.view(-1), rstd.view(-1)))
+        w = torch.ones(c, device=dev)
+        turn = [0]
+
+        def args():
+            turn[0] += 1
+            return ring[turn[0] % len(ring)]
+
+        if what == "bias":
+            def kernel():
+                return (tr.kernel_bias_grad(args()[0]),)
+
+            def plain():
+                return (tr.plain_bias_grad(args()[0]),)
+
+            def aten():
+                return (args()[0].sum(0),)
+        else:
+            def kernel():
+                return tr.kernel_layer_norm_affine_grad(*args())
+
+            def plain():
+                return tr.plain_layer_norm_affine_grad(*args())
+
+            def aten():
+                g, x, mean, rstd = args()
+                return torch.ops.aten.native_layer_norm_backward(
+                    g, x, (c,), mean.view(-1, 1), rstd.view(-1, 1), w, torch.zeros_like(w),
+                    [False, True, True])[1:]
+
+        g, x, mean, rstd = ring[(turn[0] + 1) % len(ring)]
+        g64 = g.double()
+        xhat = (x.double() - mean.double()[:, None]) * rstd.double()[:, None]
+        exact = (g64.sum(0),) if what == "bias" else ((g64 * xhat).sum(0), g64.sum(0))
+        for got, want in zip(kernel(), exact):
+            err = float((got.double() - want).abs().max() / want.abs().max())
+            out["max_rel_err"] = max(out["max_rel_err"], err)
+            check(err <= 1e-4, f"token reduction {what} at C = {c}: {err:.3e} of max")
+        t = dict(shape=[tokens, c], device_ms=device_ms_per_call(kernel, "token_reduce"),
+                 ms=time_ms(kernel), plain_ms=time_ms(plain), bound=bound(nbytes, 0.0),
+                 library_ms=time_ms(aten), library_device_ms=device_ms_per_call(aten))
+        t["roofline_pct"] = 100.0 * t["bound"][0] / t["device_ms"]
+        out[f"{what} {c}"] = t
+        log(f"[token reductions] {what} ({tokens}, {c}), {len(ring)} inputs in turn: device "
+            f"{t['device_ms']:.4f} ms, {t['ms']:.4f} ms per call, twin {t['plain_ms']:.4f} ms, "
+            f"bound {t['bound'][0]:.4f} ms ({nbytes / 1e6:.1f} MB), {t['roofline_pct']:.1f}% "
+            f"of it; ATen {t['library_ms']:.4f} ms per call, {t['library_device_ms']:.4f} ms on "
+            f"the device; on {smi}")
     return out
 
 
@@ -2314,6 +2426,22 @@ def main() -> None:
         "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": t["library_ms"],
         "device_ms": t["device_ms"], "shape": t["shape"],
         "served_160": attention["(1, 160^2)"]})
+    t = attention["token_reduce"]["bias 540"]
+    rows.append({
+        "name": "token reductions kernel_bias_grad + kernel_layer_norm_affine_grad",
+        "route": "cuda", "source": "superresolution_for_pdes_tpu_torch/csrc/token_reduce.cu",
+        "replaces": "no TPU kernel (no JAX SwinIR): ATen's sum of a linear's output gradient "
+                    "and LayerNorm's GammaBetaBackward",
+        "launches": attention["token_reduce"]["launches"],
+        "path": "a published-width SwinIR's train step at (32, 40^2) (phase 25): one bias sum "
+                "a linear and one reduction a LayerNorm",
+        "launches_by_path": attention["token_reduce"]["launches_by_path"],
+        "in_step": attention["token_reduce"]["in_step float32"],
+        "max_rel_err": attention["token_reduce"]["max_rel_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+        "library_ms": t["library_ms"], "device_ms": t["device_ms"], "shape": t["shape"],
+        "by_shape": {k: v for k, v in attention["token_reduce"].items()
+                     if k.startswith(("bias", "layer_norm"))}})
     log(f"[summary] K3 timing {k3_timing}; K2 timing {k2_timing}; fused timing "
         f"{fused_timing}; K3 sweeps {sweeps}; loss timing {loss_timing}")
     log(f"[summary] generate {generated}; train {trained['summary']}")

@@ -47,6 +47,13 @@ Departures from upstream:
   under autocast is widened to it, and other widths raise. On the CPU a
   plain PyTorch twin of the same arithmetic.
 
+The linears and LayerNorms of the Swin blocks and the tokens (:class:`Linear`,
+:class:`LayerNorm`) are ``nn.Linear`` and ``nn.LayerNorm`` with the same
+forward, state and input and weight gradients, whose bias (and LayerNorm
+weight) gradients are column sums over the tokens by ``ops/token_reduce.py``:
+on CUDA a hand-written reduction (``csrc/token_reduce.cu``), on the CPU its
+plain twin.
+
 Parameter count at the published widths (180, 6x6 blocks, 6 heads, window
 8, MLP ratio 2) with 5 input channels: 11,504,161.
 """
@@ -60,8 +67,28 @@ import torch.nn.functional as F
 from torch import nn
 
 from superresolution_for_pdes_tpu_torch.models.unet import init_weights
+from superresolution_for_pdes_tpu_torch.ops import token_reduce
 from superresolution_for_pdes_tpu_torch.ops.window_attention import window_attention
 from superresolution_for_pdes_tpu_torch.utils.profiling import span
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` whose backward sums its bias gradient over the tokens by
+    ``ops/token_reduce.py`` (on CUDA the hand-written kernel); the same
+    forward, input and weight gradients."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return token_reduce.linear(x, self.weight, self.bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` over the last dimension whose backward sums its
+    weight and bias gradients over the tokens by ``ops/token_reduce.py``; the
+    same forward and input gradient."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return token_reduce.layer_norm(x, self.weight, self.bias, self.eps)
+
 
 class WindowAttention(nn.Module):
     """Multi-head self-attention inside the windows of the map rolled by
@@ -75,8 +102,8 @@ class WindowAttention(nn.Module):
         self.scale = (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, hp, wp, _ = x.shape
@@ -90,8 +117,8 @@ class WindowAttention(nn.Module):
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden: int):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc2(F.gelu(self.fc1(x)))
@@ -104,9 +131,9 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int,
                  mlp_ratio: float):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim)
+        self.norm1 = LayerNorm(dim)
         self.attn = WindowAttention(dim, window_size, num_heads, shift)
-        self.norm2 = nn.LayerNorm(dim)
+        self.norm2 = LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, t: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
@@ -147,7 +174,7 @@ class _PatchEmbed(nn.Module):
 
     def __init__(self, dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(dim)
+        self.norm = LayerNorm(dim)
 
 
 def _unembed(t: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
@@ -172,7 +199,7 @@ class SwinIR(nn.Module):
         self.layers = nn.ModuleList(
             ResidualGroup(embed_dim, depth, heads, window_size, mlp_ratio)
             for depth, heads in zip(depths, num_heads))
-        self.norm = nn.LayerNorm(embed_dim)
+        self.norm = LayerNorm(embed_dim)
         self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, padding=1)
         self.conv_last = nn.Conv2d(embed_dim, 1, 3, padding=1)
         with torch.no_grad():
