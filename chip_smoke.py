@@ -141,7 +141,17 @@ Phases (any failed check raises, and the script exits non-zero):
    gradient (144) and one a LayerNorm's weight and bias (74), and their
    device time a step beside the bytes they read; alone at the training
    shape, the reductions against a float64 sum, with device time, time per
-   call, twin, bound and ATen's column sums as the yardstick.
+   call, twin, bound and ATen's column sums as the yardstick;
+26. HAT attention -- the tiled kernels (``csrc/window_attention.cu``) at
+   ``hat_train_b32``'s shape (32 maps of 40^2 padded to 48^2): HAB's window
+   16, plain and shifted, and OCAB's queries of 16^2 against keys of 24^2,
+   against the float32 and float64 twins (output, qkv and bias-table
+   gradients), bit for bit over two runs, device time, time per call, twin,
+   bound and SDPA as the yardstick; the tiled form at the window-8 pair's
+   shape timed beside the pair; then a published-width HAT's train step in
+   float32 and bfloat16 with its launches counted (36 window-attention and 6
+   overlapping calls each way, one token reduction a linear and a
+   LayerNorm).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true, "device":
@@ -1891,6 +1901,214 @@ def token_reduce_timing(dev: torch.device, smi: str) -> dict:
     return out
 
 
+def attention_bound(wh: int, nq: int, nk: int, d: int, table_numel: int) -> tuple:
+    """(bytes, FLOPs) a window attention's forward and backward must move and
+    compute for ``wh`` windows and heads of ``nq`` queries, ``nk`` keys and
+    head size ``d``, in float32: q, k, v read, the output and its
+    log-sum-exp written (forward); q, k, v, the output, its gradient and the
+    log-sum-exp read, the gradients of q, k and v written (backward): ``12 nq
+    d + 2 nq`` a window and head (every token's k and v once, whatever windows
+    share it); the bias table read twice and its gradient written; ``4 nq nk
+    d`` FLOPs forward and twice that backward."""
+    return 4 * (wh * (12 * nq * d + 2 * nq) + 3 * table_numel), 3 * wh * 4 * nq * nk * d
+
+
+def phase_hat_attention(dev: torch.device, smi: str, b: int = 32) -> dict:
+    """Phase 26: HAT's attention on the tiled kernels of
+    ``csrc/window_attention.cu`` (``tiled_attention_forward_kernel``,
+    ``tiled_attention_dq_kernel``, ``tiled_attention_dkv_kernel``,
+    ``kv_fold_kernel`` and the shared ``bias_grad_sum_kernel``) at the
+    training shape of ``hat_train_b32`` (32 maps of 40^2 reflect-padded to
+    48^2, 6 heads of 30): HAB's window 16, plain and shifted, and OCAB's
+    queries of 16^2 against keys of 24^2. Output, qkv and bias-table
+    gradients of the kernels and of the float32 twin
+    (``plain_window_attention``, ``plain_overlapping_window_attention``),
+    each against the float64 twin: the kernels' error at most twice the
+    twin's, or 1e-6 of the largest value (output) and 1e-5 (gradients, sums
+    over every window), as the card tests hold them; the gradients bit for
+    bit over two runs; then each kind's device time (forward, backward),
+    time per call, the twin's, the bound (:func:`attention_bound`) and, as the
+    ``library_ms`` yardstick only, SDPA on heads padded to 32 with an
+    additive mask of every window's logits. Then
+    the tiled form at the window-8 pair's own shape (``Tiled<8, 8, 30, 8>``,
+    SwinIR's (32, 40^2), shifted) against the twin and timed beside the
+    pair: whether the pair earns its place beside the tiled kernels. Last,
+    one train step of a published-width HAT at (32, 40^2) through
+    ``train_step``, in float32 and in bfloat16, with the counts set to 0 just
+    before each: one window-attention forward and backward call a HAB (36
+    each), one overlapping call each an OCAB (6), one token reduction a
+    linear and a LayerNorm; and the tiled kernels' device time in the step."""
+    import torch.nn.functional as F
+
+    from superresolution_for_pdes_tpu_torch.data.generate import generate_mixed_dataset
+    from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
+    from superresolution_for_pdes_tpu_torch.models import HAT
+    from superresolution_for_pdes_tpu_torch.models.hat import HAB, OCAB
+    from superresolution_for_pdes_tpu_torch.ops import token_reduce as tr
+    from superresolution_for_pdes_tpu_torch.ops import window_attention as wa
+    from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
+
+    heads, d, hp = 6, 30, 48
+    gen = torch.Generator(device=dev).manual_seed(26)
+    out = {"max_rel_err": 0.0}
+    names = ("output", "qkv gradient", "table gradient")
+    floors = (1e-6, 1e-5, 1e-5)
+
+    def rel(x, y):
+        return float((x.double() - y).abs().max() / y.abs().max())
+
+    def against_twins(what, kernel, twin, exact):
+        for name, k, t, e, floor in zip(names, kernel, twin, exact, floors):
+            err, twin_err = rel(k, e), rel(t, e)
+            out["max_rel_err"] = max(out["max_rel_err"], err)
+            log(f"[hat attention] {what} {name}: kernels {err:.3e}, float32 twin {twin_err:.3e} "
+                f"of max from the float64 twin")
+            check(err <= max(2 * twin_err, floor),
+                  f"{what} {name}: kernels {err:.3e}, twin {twin_err:.3e}")
+
+    kinds = (("window 16", 16, 16, wa.window_attention, wa.plain_window_attention),
+             ("overlap 16/24", 16, 24, wa.overlapping_window_attention,
+              wa.plain_overlapping_window_attention))
+    wa.reset_launch_counts()
+    for kind, window, key_window, fn, plain in kinds:
+        rows = (window + key_window - 1) ** 2
+        qkv = torch.randn(b, hp, hp, 3 * heads * d, device=dev, generator=gen)
+        table = 0.5 * torch.randn(rows, heads, device=dev, generator=gen)
+        g = torch.randn(b, hp, hp, heads * d, device=dev, generator=gen)
+        shifts = (0, window // 2) if window == key_window else (None,)
+
+        def run(f, shift, x=qkv, t=table, gg=g):
+            leaves = [v.detach().clone().requires_grad_(True) for v in (x, t)]
+            o = (f(leaves[0], leaves[1], heads, window, shift, d ** -0.5) if shift is not None
+                 else f(leaves[0], leaves[1], heads, window, key_window, d ** -0.5))
+            o.backward(gg)
+            return [o.detach()] + [v.grad for v in leaves]
+
+        for shift in shifts:
+            what = f"{kind} at ({b}, {hp}^2)" + ("" if shift is None else f" shift {shift}")
+            exact = run(plain, shift, qkv.double(), table.double(), g.double())
+            against_twins(what, run(fn, shift), run(plain, shift), exact)
+            del exact
+            torch.cuda.empty_cache()
+            check(all(torch.equal(x, y) for x, y in zip(run(fn, shift), run(fn, shift))),
+                  f"{what}: the kernels' results differ between two runs")
+        shift = shifts[-1]
+        _, _, prow = profile(lambda: run(fn, shift), reps=10)
+        fwd = sum(r[1] for r in prow if "tiled_attention_forward" in r[0])
+        bwd = sum(r[1] for r in prow if any(k in r[0] for k in (
+            "tiled_attention_dq", "tiled_attention_dkv", "kv_fold", "bias_grad_sum")))
+        wh = b * (hp // window) ** 2 * heads
+        nbytes, flops = attention_bound(wh, window ** 2, key_window ** 2, d, table.numel())
+        nw, nq, nk = (hp // window) ** 2, window ** 2, key_window ** 2
+        q, k, v = (torch.randn(b, nw * heads, n, d + 2, device=dev, generator=gen)
+                   .requires_grad_(True) for n in (nq, nk, nk))
+        mask = torch.randn(1, nw * heads, nq, nk, device=dev, generator=gen).requires_grad_(True)
+        go = torch.randn(b, nw * heads, nq, d + 2, device=dev, generator=gen)
+
+        def sdpa():
+            F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=d ** -0.5).backward(go)
+
+        t = dict(shape=[b, hp, hp], device_ms=fwd + bwd, forward_device_ms=fwd,
+                 backward_device_ms=bwd, ms=time_ms(lambda: run(fn, shift), 10),
+                 plain_ms=time_ms(lambda: run(plain, shift), 5), bound=bound(nbytes, flops),
+                 library_ms=time_ms(sdpa, 10), library_device_ms=device_ms_per_call(sdpa, reps=10))
+        del q, k, v, mask, go
+        t["roofline_pct"] = 100.0 * t["bound"][0] / t["device_ms"]
+        out[kind] = t
+        log(f"[hat attention] {kind} at ({b}, {hp}^2), forward + backward: device "
+            f"{t['device_ms']:.4f} ms (forward {fwd:.4f}, backward {bwd:.4f}), {t['ms']:.4f} ms "
+            f"per call, twin {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+            f"({t['bound'][1]}; {nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP), "
+            f"{t['roofline_pct']:.1f}% of it; SDPA on heads padded to 32 with an additive mask "
+            f"(yardstick) {t['library_ms']:.4f} ms per call, {t['library_device_ms']:.4f} ms on "
+            f"the device; on {smi}")
+        del qkv, table, g
+        torch.cuda.empty_cache()
+
+    # the tiled form at the pair's shape, called through the wrappers' tiled path
+    window, shift, hp8 = 8, 4, 40
+    qkv = torch.randn(b, hp8, hp8, 3 * heads * d, device=dev, generator=gen)
+    table = 0.5 * torch.randn((2 * window - 1) ** 2, heads, device=dev, generator=gen)
+    g = torch.randn(b, hp8, hp8, heads * d, device=dev, generator=gen)
+    scale = d ** -0.5
+
+    def tiled8():
+        o, lse = wa._tiled_forward(wa.kernel_forward, qkv, table, heads, window, window, shift,
+                                   scale)
+        return [o, *wa._tiled_backward(wa.kernel_backward, g, qkv, o, lse, table, heads, window,
+                                       window, shift, scale)]
+
+    def pair8():
+        o, lse = wa.kernel_forward(qkv, table, heads, window, shift, scale)
+        return [o, *wa.kernel_backward(g, qkv, None, lse, table, heads, window, shift, scale)]
+
+    def twin8(x=qkv, t=table, gg=g):
+        leaves = [v.detach().clone().requires_grad_(True) for v in (x, t)]
+        o = wa.plain_window_attention(leaves[0], leaves[1], heads, window, shift, scale)
+        o.backward(gg)
+        return [o.detach()] + [v.grad for v in leaves]
+
+    exact = twin8(qkv.double(), table.double(), g.double())
+    twin = twin8()
+    against_twins(f"Tiled<8, 8, 30, 8> at ({b}, {hp8}^2) shift {shift}", tiled8(), twin, exact)
+    against_twins(f"the window-8 pair at ({b}, {hp8}^2) shift {shift}", pair8(), twin, exact)
+    del exact, twin
+    cmp = {}
+    for name, f in (("tiled", tiled8), ("pair", pair8)):
+        cmp[f"{name}_device_ms"] = device_ms_per_call(f, reps=20)
+        cmp[f"{name}_ms"] = time_ms(f, 20)
+    out["tiled_vs_pair_window_8"] = cmp
+    log(f"[hat attention] window 8 at ({b}, {hp8}^2), shifted, forward + backward: "
+        f"Tiled<8, 8, 30, 8> device {cmp['tiled_device_ms']:.4f} ms ({cmp['tiled_ms']:.4f} ms "
+        f"per call), the pair {cmp['pair_device_ms']:.4f} ms ({cmp['pair_ms']:.4f} ms per "
+        f"call); on {smi}")
+    del qkv, table, g
+    torch.cuda.empty_cache()
+
+    model = HAT(in_channels=5, generator=torch.Generator().manual_seed(20)).to(dev)
+    habs = sum(isinstance(m, HAB) for m in model.modules())
+    ocabs = sum(isinstance(m, OCAB) for m in model.modules())
+    check((habs, ocabs) == (36, 6), f"HAT at its published widths: {habs} HABs, {ocabs} OCABs")
+    opt = loop.make_optimizer(model, TrainConfig())
+    stats = NormStats.from_dataset(generate_mixed_dataset(5, 16, 16, theta="mixed", device=dev))
+    linears = [m for m in model.modules() if isinstance(m, torch.nn.Linear)]
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.LayerNorm)]
+    out["launches_by_path"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        batch = step_batch(dev, stats, True, True, dtype=dtype)
+        check(tuple(batch["x"].shape) == (32, 5, 40, 40), f"HAT batch {batch['x'].shape}")
+        wa.reset_launch_counts()
+        tr.reset_launch_counts()
+        loss = float(loop.train_step(model, opt, batch, stats, 0.0, 1.0))
+        torch.cuda.synchronize()
+        counts = {**wa.launch_counts(), **wa.overlap_launch_counts()}
+        path = (f"HAT train step at (32, 40^2 -> 48^2), published widths, {str(dtype)[6:]} "
+                "(phase 26)")
+        out["launches_by_path"][path] = counts
+        log(f"[hat attention] {path}: loss {loss:.6f}, launches {counts}")
+        check(math.isfinite(loss), f"{path}: loss {loss}")
+        check(counts == {"kernel_forward": habs, "kernel_backward": habs,
+                         "overlap_kernel_forward": ocabs, "overlap_kernel_backward": ocabs},
+              f"{path}: one forward and one backward call a HAB ({habs}) and an OCAB "
+              f"({ocabs}), got {counts}")
+        reductions = {k: tr.launch_counts(torch.float32)[k] + tr.launch_counts(torch.bfloat16)[k]
+                      for k in tr.launch_counts()}
+        log(f"[hat attention] {path}: token reductions {reductions} ({len(linears)} linears, "
+            f"{len(norms)} LayerNorms)")
+        check(reductions == {"kernel_bias_grad": len(linears),
+                             "kernel_layer_norm_affine_grad": len(norms)},
+              f"{path}: one bias sum a linear and one reduction a LayerNorm, got {reductions}")
+        _, busy, rows = profile(lambda: loop.train_step(model, opt, batch, stats, 0.0, 1.0),
+                                reps=3)
+        tiled = sum(r[1] for r in rows if any(k in r[0] for k in (
+            "tiled_attention", "kv_fold", "bias_grad_sum")))
+        out[f"in_step_device_ms {str(dtype)[6:]}"] = tiled
+        log(f"[hat attention] {path}: the tiled kernels' device time {tiled:.3f} ms a step of "
+            f"{busy:.3f} ms busy; on {smi}")
+    out["launches"] = out["launches_by_path"][next(iter(out["launches_by_path"]))]
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -2340,6 +2558,8 @@ def main() -> None:
     lap("24 native oracle")
     attention = phase_window_attention(dev, smi)
     lap("25 window attention")
+    hat_attention = phase_hat_attention(dev, smi)
+    lap("26 HAT attention")
 
     t40 = loss_timing[(32, 40, 40)]
     timing = {"K1": dict(solved["k1_timing"],
@@ -2447,11 +2667,38 @@ def main() -> None:
     log(f"[summary] generate {generated}; train {trained['summary']}")
     log(f"[summary] solvers {solved['cases']}; freeze {frozen['summary']}; evaluate "
         f"{evaluated['summary']}")
+    for kind, what in (("window 16", "HAB's window attention, window 16: forward and "
+                                      "backward calls of the window-attention wrappers"),
+                       ("overlap 16/24", "OCAB's overlapping attention, queries 16^2, keys "
+                                         "24^2: forward and backward calls")):
+        t = hat_attention[kind]
+        calls = {k: v for k, v in hat_attention["launches"].items()
+                 if k.startswith("overlap") == kind.startswith("overlap")}
+        rows.append({
+            "name": f"tiled attention {kind} " + " + ".join(calls), "route": "cuda",
+            "source": "superresolution_for_pdes_tpu_torch/csrc/window_attention.cu",
+            "replaces": "no TPU kernel (no JAX HAT): the port's plain twin "
+                        + ("plain_window_attention" if kind == "window 16"
+                           else "plain_overlapping_window_attention (unfold)"),
+            "kernels": ["tiled_attention_forward_kernel", "tiled_attention_dq_kernel",
+                        "tiled_attention_dkv_kernel", "bias_grad_sum_kernel"]
+            + (["kv_fold_kernel"] if kind.startswith("overlap") else []),
+            "launches": calls,
+            "path": f"a published-width HAT's train step at (32, 40^2 -> 48^2) (phase 26): "
+                    f"{what}; bfloat16 is widened to the same kernels",
+            "launches_by_path": {p: {k: c[k] for k in calls}
+                                 for p, c in hat_attention["launches_by_path"].items()},
+            "in_step_device_ms_all_tiled": hat_attention["in_step_device_ms float32"],
+            "max_rel_err": hat_attention["max_rel_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"], "forward_device_ms": t["forward_device_ms"],
+            "backward_device_ms": t["backward_device_ms"], "shape": t["shape"]})
+    rows[-2]["tiled_vs_pair_window_8"] = hat_attention["tiled_vs_pair_window_8"]
     log(f"[summary] rebuild {rebuilt['stages']}; single-level {single}")
     log(f"[summary] resnet {resnet['summary']}; router harnesses {routed['summary']}")
     log(f"[summary] r7bf16 {bf16['summary']}; fused {fused_run}; dp {dp_run}")
     log(f"[summary] online {online_run}; shard {shard_run}; trace {trace_run}; native "
-        f"{native_run}; window attention {attention}")
+        f"{native_run}; window attention {attention}; HAT attention {hat_attention}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

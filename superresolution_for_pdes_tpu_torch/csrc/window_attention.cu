@@ -1,6 +1,9 @@
 // Hand-written Hopper (sm_90a) kernels for SwinIR's shifted-window attention
 // (models/swinir.py::WindowAttention), forward and backward, in float32 on the
-// CUDA cores (no tensor cores: TF32 is ruled out for the port's float32 path).
+// CUDA cores (no tensor cores: TF32 is ruled out for the port's float32 path);
+// and, further down, their tiled form for windows too large for one block's
+// registers and for queries and keys from different windows (HAT's window-16
+// attention and its overlapping cross-window attention, models/hat.py).
 // They replace no TPU kernel: the JAX package has no SwinIR. They replace the
 // composition roll -> window partition -> heads padded 30 -> 32 ->
 // scaled_dot_product_attention with bias and mask -> slice -> reverse -> roll,
@@ -68,7 +71,9 @@
 // Instantiated for (ws, D) = (8, 30), SwinIR's published widths, and (4, 6),
 // the tests' TINY widths, with an even number of heads (so that C % 4 == 0 and
 // every run is 16-byte aligned and inside its token's row); any other shape is
-// refused (cudaErrorInvalidValue) and the wrapper runs the plain twin instead.
+// refused (cudaErrorInvalidValue). The wrapper (ops/window_attention.py) checks
+// the shape before a launch and raises: nothing on a card falls back to the
+// plain twin.
 //
 // Each C entry point launches on the given stream, allocates nothing and
 // returns a cudaError_t as int (cudaGetLastError() after the launch).
@@ -644,4 +649,853 @@ extern "C" int srpde_window_attention_backward(const float* dout, const float* q
   if (window == 8 && head_dim == 30) return launch_backward<8, 30>(a, blocks, dtable, s);
   if (window == 4 && head_dim == 6) return launch_backward<4, 6>(a, blocks, dtable, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ---------------------------------------------------------------------------
+// Tiled window attention: windows too large for one block's registers, and
+// queries and keys from different windows (HAT, models/hat.py).
+//
+// A query window of WQ x WQ tokens attends to a key window of WK x WK tokens
+// centred on it (PAD = (WK - WQ) / 2 tokens wider on each side):
+//
+//   WK == WQ: HAB's window attention, SwinIR's arithmetic above (the map
+//     rolled by -shift, the relative index (di + WQ - 1)(2 WQ - 1) + (dj + WQ
+//     - 1) with di, dj the query's place minus the key's, the region mask on
+//     shifted blocks);
+//   WK > WQ: OCAB's overlapping cross-window attention (no shift or mask):
+//     the key window of query window (wr, wc) holds the tokens at (wr WQ -
+//     PAD + i, wc WQ - PAD + j); one outside the map is a zero key and a zero
+//     value (upstream's nn.Unfold with zero padding after the linear), whose
+//     logit is its bias alone. The table has (WQ + WK - 1)^2 rows, indexed
+//     ((dr + OFF)(WQ + WK - 1) + (dc + OFF)) mod its rows, with (dr, dc) the
+//     key's place in its window minus the query's in its own and OFF = WQ -
+//     WK + 1 (upstream's calculate_rpi_oca, whose negative indices wrap).
+//
+// Forward: one block per (window, head, tile of QT queries: QT / WQ rows of
+// the query window), 2 QT threads (a lane owns 4 query rows by KT / 8 key
+// columns of a key tile, as the pair's forward). It walks the key tiles (KR
+// rows of the key window each) with an online softmax: running max and sum
+// a row, the output rescaled when the max grows, so no logits are held past
+// their tile. It writes the output in token layout and each row's
+// log-sum-exp (log2 units).
+//
+// Backward, three launches (four with an overlap) and no float atomics:
+//   dq:  one block per query tile, walking the key tiles: delta = rowsum(dO
+//        o O) from the forward's output, P = exp2(L - lse), dL = P o (dP -
+//        delta), dQ = scale dL K, written in the qkv linear's layout; delta
+//        is written for the next launch;
+//   dkv: one block per (window, head, key tile), walking the query tiles with
+//        the logits transposed (a lane owns 4 key rows): dV = P^T dO, dK =
+//        scale dL^T Q, and dL folded into the block's bins of the relative
+//        offset (each bin a thread's, added in a fixed order) and written as
+//        one partial of the table a block; dK and dV go to the qkv linear's
+//        layout (WK == WQ: every key in exactly one window) or, with an
+//        overlap, to one row a window and key of a scratch (kv_partial);
+//   the bias table's partials summed in a fixed order (bias_grad_sum_kernel);
+//   with an overlap, kv_fold_kernel: each token's dK and dV summed over the
+//        (at most 2 x 2) key windows that hold it, in a fixed order.
+//
+// Instantiated for (WQ, WK, D) = (16, 16, 30), HAB at HAT's published widths;
+// (16, 24, 30), OCAB at those widths; (4, 6, 6), OCAB at the tests' TINY
+// widths; and (8, 8, 30), SwinIR's window, which the wrapper sends to the pair
+// above: it is built so that chip_smoke.py can time the tiled form against the
+// pair at the pair's own shape. An even number of heads (16-byte aligned runs,
+// as the pair).
+// float32 on the CUDA cores; each launch allocates nothing.
+
+namespace {
+
+constexpr float kNeg = -1e30f;  // the logit of a place past the key window
+
+template <int WQ_, int WK_, int D_, int KR_>
+struct Tiled {
+  static constexpr int WQ = WQ_, WK = WK_, D = D_, KR = KR_;
+  static constexpr bool OVERLAP = WK > WQ;
+  static constexpr int PAD = (WK - WQ) / 2;
+  static constexpr int NQ = WQ * WQ, NK = WK * WK;
+  static constexpr int QT = NQ < 64 ? NQ : 64;  // queries a tile
+  static constexpr int QR = QT / WQ;            // query-window rows a tile
+  static constexpr int NQT = NQ / QT;
+  static constexpr int KT = KR * WK;            // key places a tile (the last may pass WK rows)
+  static constexpr int NKT = (WK + KR - 1) / KR;
+  static constexpr int L = WQ + WK - 1;         // side of the bias table
+  static constexpr int NB = L * L;
+  static constexpr int NBP = (NB + 3) / 4 * 4;
+  static constexpr int OFF = WQ - WK + 1;
+  static constexpr int QTHREADS = 2 * QT, KTHREADS = 2 * KT;
+  static constexpr int TC = KT / 8, QC = QT / 8;
+  static constexpr int DP = D + 2, PITCH = DP + 4, OC = DP / 8, CH = DP / 4;
+  static constexpr int SK = KT + 4, SQ = QT + 4;
+  // the walked tiles' tokens, copies, regions and bias parts are double-buffered
+  static constexpr size_t kTokBytes = 2 * (QT + KT) * (sizeof(long long) + 2 * sizeof(int));
+  static constexpr size_t kForwardSmem =
+      (QT * PITCH + 4 * KT * PITCH + KT * SQ + NBP) * sizeof(float) + kTokBytes;
+  static constexpr size_t kDqSmem =
+      (2 * QT * PITCH + 4 * KT * PITCH + QT * SK + NBP) * sizeof(float) + kTokBytes;
+  static constexpr size_t kDkvSmem =
+      (2 * KT * PITCH + 4 * QT * PITCH + 2 * KT * SQ + 2 * NBP + 4 * QT) * sizeof(float) +
+      kTokBytes;
+  static_assert(QT % 16 == 0 && KT % 16 == 0 && QT % WQ == 0 && NQ % QT == 0, "tiles");
+  static_assert(D % 4 == 2 && DP % 8 == 0, "a head's 16-byte aligned run is D + 2 floats");
+  static_assert((WK - WQ) % 2 == 0 && PAD <= WQ / 2, "a key window centred on its query window");
+  static_assert(SK >= PITCH, "the output tile is staged where dL goes");
+};
+
+struct TArgs {
+  const float* qkv;      // (B, Hp, Wp, 3C)
+  const float* table;    // ((WQ + WK - 1)^2, heads)
+  const float* dout;     // (B, Hp, Wp, C), backward
+  const float* out_r;    // (B, Hp, Wp, C), the forward's output, backward
+  const float* lse_r;    // (B windows heads, WQ^2), backward
+  const float* delta_r;  // (B windows heads, WQ^2), dkv
+  float* out;            // forward
+  float* lse;            // forward
+  float* dqkv;           // (B, Hp, Wp, 3C), backward
+  float* delta;          // dq
+  float* kvpart;         // (B windows, WK^2, 2C), dkv with an overlap
+  float* partial;        // (B windows key tiles, (WQ + WK - 1)^2 heads), dkv
+  int hp, wp, heads, shift;
+  float scale;
+};
+
+// A query window's batch and the rolled map's row and column of its first token.
+struct Where {
+  long long b;
+  int r0, c0;
+};
+
+template <int WQ>
+__device__ __forceinline__ Where where(const TArgs& a, long long window) {
+  const int per_row = a.wp / WQ, per_map = (a.hp / WQ) * per_row;
+  const int w = static_cast<int>(window % per_map);
+  return {window / per_map, (w / per_row) * WQ, (w % per_row) * WQ};
+}
+
+// The region of a rolled-map place along a side of n (upstream's slicing by
+// (-WQ, -shift)).
+template <int WQ>
+__device__ __forceinline__ int side_region(int r, int n, int shift) {
+  return (r >= n - WQ) + (r >= n - shift);
+}
+
+// The map place of rolled place (r, c) (shifted by +shift, wrapped), and its region.
+template <int WQ>
+__device__ __forceinline__ void rolled(const TArgs& a, long long b, int r, int c, long long& tok,
+                                       int& region) {
+  int pr = r + a.shift, pc = c + a.shift;
+  if (pr >= a.hp) pr -= a.hp;
+  if (pc >= a.wp) pc -= a.wp;
+  tok = (b * a.hp + pr) * a.wp + pc;
+  region = a.shift ? side_region<WQ>(r, a.hp, a.shift) * 3 + side_region<WQ>(c, a.wp, a.shift) : 0;
+}
+
+// Query t of tile qt: its map place, region and base of the bias index.
+template <class T>
+__device__ __forceinline__ void query_token(const TArgs& a, const Where& w, int qt, int t,
+                                            long long* tok, int* region, int* base) {
+  const int i = qt * T::QT + t, qr = i / T::WQ, qc = i % T::WQ;
+  rolled<T::WQ>(a, w.b, w.r0 + qr, w.c0 + qc, tok[t], region[t]);
+  base[t] = T::OVERLAP ? T::OFF * (T::L + 1) - (qr * T::L + qc)
+                       : (qr + T::WQ - 1) * T::L + qc + T::WQ - 1;
+}
+
+// Key place t of tile kt: its map place (-1: a zero key outside the map),
+// region (-1: past the key window, no key) and part of the bias index.
+template <class T>
+__device__ __forceinline__ void key_token(const TArgs& a, const Where& w, int kt, int t,
+                                          long long* tok, int* region, int* part) {
+  const int j = kt * T::KT + t, kr = j / T::WK, kc = j % T::WK;
+  part[t] = T::OVERLAP ? kr * T::L + kc : -(kr * T::L + kc);
+  if (kr >= T::WK) {
+    tok[t] = -1;
+    region[t] = -1;
+  } else if (T::OVERLAP) {
+    const int r = w.r0 - T::PAD + kr, c = w.c0 - T::PAD + kc;
+    tok[t] = (r < 0 || r >= a.hp || c < 0 || c >= a.wp) ? -1 : (w.b * a.hp + r) * a.wp + c;
+    region[t] = 0;
+  } else {
+    rolled<T::WQ>(a, w.b, w.r0 + kr, w.c0 + kc, tok[t], region[t]);
+  }
+}
+
+// The logit (log2 units) of q.k = s between a query and a key.
+template <class T>
+__device__ __forceinline__ float tiled_logit(float s, float scale2, const float* bias, int qbase,
+                                             int qregion, int kpart, int kregion) {
+  if (kregion < 0) return kNeg;
+  int b = qbase + kpart;
+  if (T::OVERLAP && b < 0) b += T::NB;
+  const float l = fmaf(s, scale2, bias[b]);
+  return qregion == kregion ? l : l + kRegionMask;
+}
+
+// The bin of the table for the key-minus-query offset (dr, dc).
+template <class T>
+__device__ __forceinline__ int offset_bin(int dr, int dc) {
+  if (T::OVERLAP) {
+    const int b = (dr + T::OFF) * T::L + dc + T::OFF;
+    return b < 0 ? b + T::NB : b;
+  }
+  return (T::WQ - 1 - dr) * T::L + T::WQ - 1 - dc;
+}
+
+// n tokens' runs of DP floats around the head at column `col` of their rows
+// of `src` (rows of `stride` floats) into `dst` (rows of PITCH), by 16-byte
+// asynchronous copies; a token at -1 is filled with zeros.
+template <class T>
+__device__ __forceinline__ void stage_tokens(const float* __restrict__ src, long long stride,
+                                             int col, const long long* tok, int n, float* dst,
+                                             int nthreads) {
+  const float* from = src + col - col % 4;
+  for (int idx = threadIdx.x; idx < n * T::CH; idx += nthreads) {
+    const int t = idx / T::CH, ch = idx - t * T::CH;
+    const long long tk = tok[t];
+    const unsigned to =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + t * T::PITCH + 4 * ch));
+    const float* g = tk >= 0 ? from + tk * stride + 4 * ch : src;
+    const int bytes = tk >= 0 ? 16 : 0;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(g),
+                 "r"(bytes) : "memory");
+  }
+}
+
+__device__ __forceinline__ void copies_done() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void copies_issued() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Waits for this thread's copies but those of the last group issued.
+__device__ __forceinline__ void copies_but_last_done() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+
+// After copies_done(): the two columns of each staged run outside the head
+// set to zero, by the thread that copied them (the same loop as the tile's
+// stage_tokens call, so no barrier is needed before); a __syncthreads() must
+// follow.
+template <class T>
+__device__ __forceinline__ void zero_outside(float* dst, int n, int sh, int nthreads) {
+  const int edge = sh ? 0 : T::CH - 1, zero = sh ? 0 : T::D;
+  for (int idx = threadIdx.x; idx < n * T::CH; idx += nthreads) {
+    const int t = idx / T::CH;
+    if (idx - t * T::CH == edge) {
+      *reinterpret_cast<float2*>(dst + t * T::PITCH + zero) = make_float2(0.0f, 0.0f);
+    }
+  }
+}
+
+// The key tiles of a (window, head), walked with the next tile's tokens
+// located and its copies in flight while `body(k, v, kreg, kpart)` computes
+// on this one (two buffers of each); every thread of the block calls it.
+template <class T, class Body>
+__device__ __forceinline__ void walk_key_tiles(const TArgs& a, const Where& w, int c, int head,
+                                               int sh, float* kv, long long* ktok, int* kreg,
+                                               int* kpart, Body body) {
+  constexpr int KV = T::KT * T::PITCH;
+  auto locate_and_copy = [&](int kt, int buf) {
+    long long* tok = ktok + buf * T::KT;
+    for (int t = threadIdx.x; t < T::KT; t += T::QTHREADS) {
+      key_token<T>(a, w, kt, t, tok, kreg + buf * T::KT, kpart + buf * T::KT);
+    }
+    __syncthreads();
+    stage_tokens<T>(a.qkv, 3LL * c, c + head * T::D, tok, T::KT, kv + 2 * buf * KV, T::QTHREADS);
+    stage_tokens<T>(a.qkv, 3LL * c, 2 * c + head * T::D, tok, T::KT, kv + (2 * buf + 1) * KV,
+                    T::QTHREADS);
+    copies_issued();
+  };
+  locate_and_copy(0, 0);
+  for (int kt = 0; kt < T::NKT; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < T::NKT) {
+      locate_and_copy(kt + 1, cur ^ 1);
+      copies_but_last_done();
+    } else {
+      copies_done();
+    }
+    float* k = kv + 2 * cur * KV;
+    zero_outside<T>(k, T::KT, sh, T::QTHREADS);
+    zero_outside<T>(k + KV, T::KT, sh, T::QTHREADS);
+    __syncthreads();
+    body(k, k + KV, kreg + cur * T::KT, kpart + cur * T::KT);
+    __syncthreads();  // this tile's buffers are read before the next but one fills them
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::QTHREADS) tiled_attention_forward_kernel(const TArgs a) {
+  extern __shared__ float4 smem4[];
+  float* q = reinterpret_cast<float*>(smem4);
+  float* kv = q + T::QT * T::PITCH;      // two buffers of a key tile's k then v
+  float* pt = kv + 4 * T::KT * T::PITCH;  // the key tile's P^T: pt[j SQ + i]
+  float* bias = pt + T::KT * T::SQ;
+  long long* qtok = reinterpret_cast<long long*>(bias + T::NBP);
+  long long* ktok = qtok + T::QT;  // two buffers
+  int* qreg = reinterpret_cast<int*>(ktok + 2 * T::KT);
+  int* qbase = qreg + T::QT;
+  int* kreg = qbase + T::QT;       // two buffers
+  int* kpart = kreg + 2 * T::KT;   // two buffers
+
+  const int tid = threadIdx.x;
+  const int qt = static_cast<int>(blockIdx.x % T::NQT);
+  const long long wh = blockIdx.x / T::NQT;
+  const int head = static_cast<int>(wh % a.heads);
+  const Where w = where<T::WQ>(a, wh / a.heads);
+  for (int n = tid; n < T::NB; n += T::QTHREADS) bias[n] = a.table[n * a.heads + head] * kLog2e;
+  for (int t = tid; t < T::QT; t += T::QTHREADS) query_token<T>(a, w, qt, t, qtok, qreg, qbase);
+  __syncthreads();
+  const int c = a.heads * T::D, sh = head_shift<T::D>(head);
+  stage_tokens<T>(a.qkv, 3LL * c, head * T::D, qtok, T::QT, q, T::QTHREADS);
+  copies_done();
+  zero_outside<T>(q, T::QT, sh, T::QTHREADS);
+
+  const int lane_id = tid & 31, cg = lane_id & 7, c0 = cg * T::OC;
+  const int row0 = (tid >> 5) * 16 + (lane_id >> 3) * 4;
+  const float scale2 = a.scale * kLog2e;
+  float m[4], l[4], o[4][T::OC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNeg;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < T::OC; ++e) o[i][e] = 0.0f;
+  }
+  walk_key_tiles<T>(a, w, c, head, sh, kv, ktok, kreg, kpart,
+                    [&](const float* k, const float* v, const int* kreg, const int* kpart) {
+    float s[4][T::TC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < T::TC; ++j) s[i][j] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < T::DP; kk += 4) {
+      float4 qa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = *reinterpret_cast<const float4*>(q + (row0 + i) * T::PITCH + kk);
+      }
+#pragma unroll
+      for (int j = 0; j < T::TC; ++j) {
+        const float4 kb = *reinterpret_cast<const float4*>(k + (cg + 8 * j) * T::PITCH + kk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[i][j] = dot4(qa[i], kb, s[i][j]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + i;
+      float mt = kNeg;
+#pragma unroll
+      for (int j = 0; j < T::TC; ++j) {
+        const int col = cg + 8 * j;
+        s[i][j] = tiled_logit<T>(s[i][j], scale2, bias, qbase[r], qreg[r], kpart[col], kreg[col]);
+        mt = fmaxf(mt, s[i][j]);
+      }
+#pragma unroll
+      for (int x = 1; x < 8; x <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, x));
+      const float mnew = fmaxf(m[i], mt), alpha = exp2f(m[i] - mnew);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < T::TC; ++j) {
+        s[i][j] = exp2f(s[i][j] - mnew);
+        sum += s[i][j];
+      }
+      l[i] = fmaf(l[i], alpha, row_sum(sum));
+      m[i] = mnew;
+#pragma unroll
+      for (int e = 0; e < T::OC; ++e) o[i][e] *= alpha;
+    }
+#pragma unroll
+    for (int j = 0; j < T::TC; ++j) {
+      *reinterpret_cast<float4*>(pt + (cg + 8 * j) * T::SQ + row0) =
+          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+    }
+    __syncwarp();  // a row group reads only the P^T its own lanes wrote
+#pragma unroll 4
+    for (int j = 0; j < T::KT; ++j) {
+      const float4 p = *reinterpret_cast<const float4*>(pt + j * T::SQ + row0);
+      float vb[T::OC];
+      load_cols<T::OC>(v + j * T::PITCH + c0, vb);
+#pragma unroll
+      for (int e = 0; e < T::OC; ++e) {
+        o[0][e] = fmaf(p.x, vb[e], o[0][e]);
+        o[1][e] = fmaf(p.y, vb[e], o[1][e]);
+        o[2][e] = fmaf(p.z, vb[e], o[2][e]);
+        o[3][e] = fmaf(p.w, vb[e], o[3][e]);
+      }
+    }
+  });
+  float lse[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    store_cols<T::D, T::OC>(a.out + qtok[row0 + i] * c + head * T::D, c0, sh, o[i], 1.0f / l[i]);
+    lse[i] = m[i] + log2f(l[i]);
+  }
+  if (cg == 0) {
+    *reinterpret_cast<float4*>(a.lse + wh * T::NQ + qt * T::QT + row0) =
+        make_float4(lse[0], lse[1], lse[2], lse[3]);
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::QTHREADS) tiled_attention_dq_kernel(const TArgs a) {
+  extern __shared__ float4 smem4[];
+  float* q = reinterpret_cast<float*>(smem4);
+  float* g = q + T::QT * T::PITCH;        // dO
+  float* kv = g + T::QT * T::PITCH;       // two buffers of a key tile's k then v
+  float* dl = kv + 4 * T::KT * T::PITCH;  // dL, row-major; first the output, staged
+  float* bias = dl + T::QT * T::SK;
+  long long* qtok = reinterpret_cast<long long*>(bias + T::NBP);
+  long long* ktok = qtok + T::QT;  // two buffers
+  int* qreg = reinterpret_cast<int*>(ktok + 2 * T::KT);
+  int* qbase = qreg + T::QT;
+  int* kreg = qbase + T::QT;       // two buffers
+  int* kpart = kreg + 2 * T::KT;   // two buffers
+
+  const int tid = threadIdx.x;
+  const int qt = static_cast<int>(blockIdx.x % T::NQT);
+  const long long wh = blockIdx.x / T::NQT;
+  const int head = static_cast<int>(wh % a.heads);
+  const Where w = where<T::WQ>(a, wh / a.heads);
+  for (int n = tid; n < T::NB; n += T::QTHREADS) bias[n] = a.table[n * a.heads + head] * kLog2e;
+  for (int t = tid; t < T::QT; t += T::QTHREADS) query_token<T>(a, w, qt, t, qtok, qreg, qbase);
+  __syncthreads();
+  const int c = a.heads * T::D, sh = head_shift<T::D>(head);
+  stage_tokens<T>(a.qkv, 3LL * c, head * T::D, qtok, T::QT, q, T::QTHREADS);
+  stage_tokens<T>(a.dout, c, head * T::D, qtok, T::QT, g, T::QTHREADS);
+  stage_tokens<T>(a.out_r, c, head * T::D, qtok, T::QT, dl, T::QTHREADS);
+  copies_done();
+  zero_outside<T>(q, T::QT, sh, T::QTHREADS);
+  zero_outside<T>(g, T::QT, sh, T::QTHREADS);
+  zero_outside<T>(dl, T::QT, sh, T::QTHREADS);
+  __syncthreads();
+
+  const int lane_id = tid & 31, cg = lane_id & 7, c0 = cg * T::OC;
+  const int row0 = (tid >> 5) * 16 + (lane_id >> 3) * 4;
+  const long long at = wh * T::NQ + qt * T::QT + row0;
+  float delta[4], lse[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float gv[T::OC], ov[T::OC];
+    load_cols<T::OC>(g + (row0 + i) * T::PITCH + c0, gv);
+    load_cols<T::OC>(dl + (row0 + i) * T::PITCH + c0, ov);
+    float acc = 0.0f;
+#pragma unroll
+    for (int e = 0; e < T::OC; ++e) acc = fmaf(gv[e], ov[e], acc);
+    delta[i] = row_sum(acc);  // rowsum(dO o O) = rowsum(P o dP)
+    lse[i] = a.lse_r[at + i];
+  }
+  if (cg == 0) {
+    *reinterpret_cast<float4*>(a.delta + at) = make_float4(delta[0], delta[1], delta[2], delta[3]);
+  }
+  const float scale2 = a.scale * kLog2e;
+  float dq[4][T::OC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < T::OC; ++e) dq[i][e] = 0.0f;
+  walk_key_tiles<T>(a, w, c, head, sh, kv, ktok, kreg, kpart,
+                    [&](const float* k, const float* v, const int* kreg, const int* kpart) {
+    float s[4][T::TC], dp[4][T::TC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < T::TC; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < T::DP; kk += 4) {
+      float4 qa[4], ga[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qa[i] = *reinterpret_cast<const float4*>(q + (row0 + i) * T::PITCH + kk);
+        ga[i] = *reinterpret_cast<const float4*>(g + (row0 + i) * T::PITCH + kk);
+      }
+#pragma unroll
+      for (int j = 0; j < T::TC; ++j) {
+        const float4 kb = *reinterpret_cast<const float4*>(k + (cg + 8 * j) * T::PITCH + kk);
+        const float4 vb = *reinterpret_cast<const float4*>(v + (cg + 8 * j) * T::PITCH + kk);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[i][j] = dot4(qa[i], kb, s[i][j]);
+          dp[i][j] = dot4(ga[i], vb, dp[i][j]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = row0 + i;
+#pragma unroll
+      for (int j = 0; j < T::TC; ++j) {
+        const int col = cg + 8 * j;
+        const float p = exp2f(tiled_logit<T>(s[i][j], scale2, bias, qbase[r], qreg[r], kpart[col],
+                                             kreg[col]) - lse[i]);
+        dl[r * T::SK + col] = p * (dp[i][j] - delta[i]);
+      }
+    }
+    __syncwarp();  // a row group reads only the dL its own lanes wrote
+#pragma unroll 2
+    for (int jc = 0; jc < T::KT; jc += 4) {
+      float4 l4[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        l4[i] = *reinterpret_cast<const float4*>(dl + (row0 + i) * T::SK + jc);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        float kb[T::OC];
+        load_cols<T::OC>(k + (jc + jj) * T::PITCH + c0, kb);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int e = 0; e < T::OC; ++e) dq[i][e] = fmaf(lane(l4[i], jj), kb[e], dq[i][e]);
+      }
+    }
+  });
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    store_cols<T::D, T::OC>(a.dqkv + qtok[row0 + i] * (3LL * c) + head * T::D, c0, sh, dq[i],
+                            a.scale);
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::KTHREADS) tiled_attention_dkv_kernel(const TArgs a) {
+  extern __shared__ float4 smem4[];
+  constexpr int QG = T::QT * T::PITCH;
+  float* k = reinterpret_cast<float*>(smem4);
+  float* v = k + T::KT * T::PITCH;
+  float* qg = v + T::KT * T::PITCH;  // two buffers of a query tile's q then dO
+  float* pt = qg + 4 * QG;           // P^T, pt[j SQ + i]
+  float* dlt = pt + T::KT * T::SQ;   // dL^T
+  float* bias = dlt + T::KT * T::SQ;
+  float* bins = bias + T::NBP;       // the block's sums by key-minus-query offset
+  float* lses = bins + T::NBP;       // two buffers
+  float* deltas = lses + 2 * T::QT;  // two buffers
+  long long* ktok = reinterpret_cast<long long*>(deltas + 2 * T::QT);
+  long long* qtoks = ktok + T::KT;   // two buffers
+  int* kreg = reinterpret_cast<int*>(qtoks + 2 * T::QT);
+  int* kpart = kreg + T::KT;
+  int* qregs = kpart + T::KT;        // two buffers
+  int* qbases = qregs + 2 * T::QT;   // two buffers
+
+  const int tid = threadIdx.x;
+  const int kt = static_cast<int>(blockIdx.x % T::NKT);
+  const long long wh = blockIdx.x / T::NKT;
+  const int head = static_cast<int>(wh % a.heads);
+  const long long window = wh / a.heads;
+  const Where w = where<T::WQ>(a, window);
+  for (int n = tid; n < T::NB; n += T::KTHREADS) {
+    bias[n] = a.table[n * a.heads + head] * kLog2e;
+    bins[n] = 0.0f;
+  }
+  for (int t = tid; t < T::KT; t += T::KTHREADS) key_token<T>(a, w, kt, t, ktok, kreg, kpart);
+  __syncthreads();
+  const int c = a.heads * T::D, sh = head_shift<T::D>(head);
+  stage_tokens<T>(a.qkv, 3LL * c, c + head * T::D, ktok, T::KT, k, T::KTHREADS);
+  stage_tokens<T>(a.qkv, 3LL * c, 2 * c + head * T::D, ktok, T::KT, v, T::KTHREADS);
+  copies_done();
+  zero_outside<T>(k, T::KT, sh, T::KTHREADS);
+  zero_outside<T>(v, T::KT, sh, T::KTHREADS);
+
+  const int lane_id = tid & 31, cg = lane_id & 7, c0 = cg * T::OC;
+  const int row0 = (tid >> 5) * 16 + (lane_id >> 3) * 4;  // 4 key rows
+  const float scale2 = a.scale * kLog2e;
+  float dk[4][T::OC], dv[4][T::OC];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < T::OC; ++e) dk[j][e] = dv[j][e] = 0.0f;
+  const int kr_lo = kt * T::KR, kr_hi = min(kr_lo + T::KR, T::WK);
+  // the query tiles, walked with the next tile's tokens, statistics and
+  // copies in flight while this one computes (two buffers of each)
+  auto locate_and_copy = [&](int qt, int buf) {
+    const long long at = wh * T::NQ + qt * T::QT;
+    long long* tok = qtoks + buf * T::QT;
+    for (int t = tid; t < T::QT; t += T::KTHREADS) {
+      query_token<T>(a, w, qt, t, tok, qregs + buf * T::QT, qbases + buf * T::QT);
+      lses[buf * T::QT + t] = a.lse_r[at + t];
+      deltas[buf * T::QT + t] = a.delta_r[at + t];
+    }
+    __syncthreads();
+    stage_tokens<T>(a.qkv, 3LL * c, head * T::D, tok, T::QT, qg + 2 * buf * QG, T::KTHREADS);
+    stage_tokens<T>(a.dout, c, head * T::D, tok, T::QT, qg + (2 * buf + 1) * QG, T::KTHREADS);
+    copies_issued();
+  };
+  locate_and_copy(0, 0);
+  for (int qt = 0; qt < T::NQT; ++qt) {
+    const int cur = qt & 1;
+    if (qt + 1 < T::NQT) {
+      // the last tile's q, dO, tokens and statistics of buffer cur ^ 1 are read
+      locate_and_copy(qt + 1, cur ^ 1);
+      copies_but_last_done();
+    } else {
+      copies_done();
+    }
+    const float* q = qg + 2 * cur * QG;
+    const float* g = q + QG;
+    const int* qreg = qregs + cur * T::QT;
+    const int* qbase = qbases + cur * T::QT;
+    const float* lse = lses + cur * T::QT;
+    const float* delta = deltas + cur * T::QT;
+    zero_outside<T>(qg + 2 * cur * QG, T::QT, sh, T::KTHREADS);
+    zero_outside<T>(qg + (2 * cur + 1) * QG, T::QT, sh, T::KTHREADS);
+    __syncthreads();
+
+    float s[4][T::QC], dp[4][T::QC];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < T::QC; ++i) s[j][i] = dp[j][i] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < T::DP; kk += 4) {
+      float4 ka[4], va[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        ka[j] = *reinterpret_cast<const float4*>(k + (row0 + j) * T::PITCH + kk);
+        va[j] = *reinterpret_cast<const float4*>(v + (row0 + j) * T::PITCH + kk);
+      }
+#pragma unroll
+      for (int i = 0; i < T::QC; ++i) {
+        const float4 qb = *reinterpret_cast<const float4*>(q + (cg + 8 * i) * T::PITCH + kk);
+        const float4 gb = *reinterpret_cast<const float4*>(g + (cg + 8 * i) * T::PITCH + kk);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[j][i] = dot4(ka[j], qb, s[j][i]);
+          dp[j][i] = dot4(va[j], gb, dp[j][i]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int r = row0 + j;
+#pragma unroll
+      for (int i = 0; i < T::QC; ++i) {
+        const int col = cg + 8 * i;
+        const float p = exp2f(tiled_logit<T>(s[j][i], scale2, bias, qbase[col], qreg[col],
+                                             kpart[r], kreg[r]) - lse[col]);
+        pt[r * T::SQ + col] = p;
+        dlt[r * T::SQ + col] = p * (dp[j][i] - delta[col]);
+      }
+    }
+    __syncwarp();  // a row group reads only the rows its own lanes wrote
+#pragma unroll 2
+    for (int ic = 0; ic < T::QT; ic += 4) {
+      float4 p4[4], l4[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        p4[j] = *reinterpret_cast<const float4*>(pt + (row0 + j) * T::SQ + ic);
+        l4[j] = *reinterpret_cast<const float4*>(dlt + (row0 + j) * T::SQ + ic);
+      }
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        float gv[T::OC], qv[T::OC];
+        load_cols<T::OC>(g + (ic + ii) * T::PITCH + c0, gv);
+        load_cols<T::OC>(q + (ic + ii) * T::PITCH + c0, qv);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < T::OC; ++e) {
+            dv[j][e] = fmaf(lane(p4[j], ii), gv[e], dv[j][e]);
+            dk[j][e] = fmaf(lane(l4[j], ii), qv[e], dk[j][e]);
+          }
+      }
+    }
+    __syncthreads();  // every row of dL^T is written
+    // dL folded into the bins of this pair of tiles' offsets dr = kr - qr,
+    // dc = kc - qc; each bin a thread's, its pairs added in a fixed order
+    const int qr_lo = qt * T::QR, qr_hi = qr_lo + T::QR;
+    const int dr_lo = kr_lo - (qr_hi - 1), ndr = kr_hi - 1 - qr_lo - dr_lo + 1;
+    for (int sl = tid; sl < ndr * T::L; sl += T::KTHREADS) {
+      const int dr = dr_lo + sl / T::L, dc = sl % T::L - (T::WQ - 1);
+      const int qc_lo = max(0, -dc), qc_hi = min(T::WQ, T::WK - dc);
+      float acc = 0.0f;
+      for (int qr = max(qr_lo, kr_lo - dr); qr < min(qr_hi, kr_hi - dr); ++qr) {
+        const float* d0 = dlt + ((qr + dr - kr_lo) * T::WK + dc) * T::SQ + (qr - qr_lo) * T::WQ;
+        for (int qc = qc_lo; qc < qc_hi; ++qc) acc += d0[qc * (T::SQ + 1)];
+      }
+      bins[(dr + T::WQ - 1) * T::L + dc + T::WQ - 1] += acc;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = row0 + j;
+    if (kreg[r] < 0) continue;
+    float* dst;
+    long long stride_off;
+    if (T::OVERLAP) {
+      dst = a.kvpart + (window * T::NK + kt * T::KT + r) * (2LL * c);
+      stride_off = c;
+    } else {
+      dst = a.dqkv + ktok[r] * (3LL * c) + c;
+      stride_off = c;
+    }
+    store_cols<T::D, T::OC>(dst + head * T::D, c0, sh, dk[j], a.scale);
+    store_cols<T::D, T::OC>(dst + stride_off + head * T::D, c0, sh, dv[j], 1.0f);
+  }
+  float* part = a.partial + (window * T::NKT + kt) * (static_cast<long long>(T::NB) * a.heads);
+  for (int sl = tid; sl < T::NB; sl += T::KTHREADS) {
+    const int dr = sl / T::L - (T::WQ - 1), dc = sl % T::L - (T::WQ - 1);
+    part[offset_bin<T>(dr, dc) * a.heads + head] = bins[sl];
+  }
+}
+
+// With an overlap: each token's dK and dV (4 floats of 2C a thread), the sum
+// over the key windows that hold it, in order of window row then column.
+template <class T>
+__global__ void __launch_bounds__(256) kv_fold_kernel(const TArgs a, long long tokens) {
+  const int c = a.heads * T::D, per = c / 2;  // float4s of 2C
+  const long long idx = blockIdx.x * 256LL + threadIdx.x;
+  if (idx >= tokens * per) return;
+  const long long tok = idx / per;
+  const int ch = static_cast<int>(idx % per) * 4;
+  const int col = static_cast<int>(tok % a.wp), row = static_cast<int>((tok / a.wp) % a.hp);
+  const long long b = tok / (static_cast<long long>(a.wp) * a.hp);
+  const int nwr = a.hp / T::WQ, nwc = a.wp / T::WQ;
+  const int wr_hi = min((row + T::PAD) / T::WQ, nwr - 1), wc_hi = min((col + T::PAD) / T::WQ, nwc - 1);
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int wr = max(0, wr_hi - 1); wr <= wr_hi; ++wr) {
+    const int kr = row - (wr * T::WQ - T::PAD);
+    if (kr < 0 || kr >= T::WK) continue;
+    for (int wc = max(0, wc_hi - 1); wc <= wc_hi; ++wc) {
+      const int kc = col - (wc * T::WQ - T::PAD);
+      if (kc < 0 || kc >= T::WK) continue;
+      const long long window = (b * nwr + wr) * nwc + wc;
+      const float4 x = __ldg(reinterpret_cast<const float4*>(
+          a.kvpart + (window * T::NK + kr * T::WK + kc) * (2LL * c) + ch));
+      acc.x += x.x;
+      acc.y += x.y;
+      acc.z += x.z;
+      acc.w += x.w;
+    }
+  }
+  *reinterpret_cast<float4*>(a.dqkv + tok * (3LL * c) + c + ch) = acc;
+}
+
+template <int WQ_, int WK_, int D_, int KR_>
+struct Shape {
+  using T = Tiled<WQ_, WK_, D_, KR_>;
+};
+
+// f(Shape<...>{}) for the instantiated (window, key window, head size), or
+// `none`.
+template <class F>
+int tiled_dispatch(int window, int key_window, int head_dim, int none, F f) {
+  if (window == 16 && key_window == 16 && head_dim == 30) return f(Shape<16, 16, 30, 4>{});
+  if (window == 16 && key_window == 24 && head_dim == 30) return f(Shape<16, 24, 30, 2>{});
+  if (window == 4 && key_window == 6 && head_dim == 6) return f(Shape<4, 6, 6, 8>{});
+  if (window == 8 && key_window == 8 && head_dim == 30) return f(Shape<8, 8, 30, 8>{});
+  return none;
+}
+
+constexpr int kRefused = static_cast<int>(cudaErrorInvalidValue);
+
+// The query windows of a map, or 0 for a geometry no tiled kernel takes.
+long long tiled_windows(int batch, int hp, int wp, int heads, int window, int key_window,
+                        int shift) {
+  if (batch < 1 || heads < 1 || heads % 2 || window < 1 || hp < window || wp < window ||
+      hp % window || wp % window || shift < 0 || shift >= window ||
+      (key_window != window && shift != 0)) {
+    return 0;
+  }
+  return static_cast<long long>(batch) * (hp / window) * (wp / window);
+}
+
+template <class T, class Kernel>
+int launch_tiled(Kernel kernel, size_t smem, long long blocks, int threads, const TArgs& a,
+                 unsigned& devices, cudaStream_t s) {
+  if (blocks > INT_MAX) return kRefused;
+  const cudaError_t err = allow_smem(kernel, smem, devices);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(blocks), threads, smem, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The key tiles of the tiled kernels' shape (window, key window, head size),
+// or 0 where none is instantiated: the rows of the backward's bias partials
+// are windows times this.
+extern "C" int srpde_tiled_attention_key_tiles(int window, int key_window, int head_dim) {
+  return tiled_dispatch(window, key_window, head_dim, 0,
+                        [](auto shape) { return decltype(shape)::T::NKT; });
+}
+
+// out (B, Hp, Wp, C) and lse (B windows heads, window^2) from qkv (B, Hp, Wp,
+// 3C) and the bias table ((window + key_window - 1)^2, heads).
+extern "C" int srpde_tiled_attention_forward(const float* qkv, const float* table, float* out,
+                                             float* lse, int batch, int hp, int wp, int heads,
+                                             int window, int key_window, int head_dim, int shift,
+                                             float scale, void* stream) {
+  const long long windows = tiled_windows(batch, hp, wp, heads, window, key_window, shift);
+  if (windows == 0) return kRefused;
+  TArgs a{};
+  a.qkv = qkv;
+  a.table = table;
+  a.out = out;
+  a.lse = lse;
+  a.hp = hp;
+  a.wp = wp;
+  a.heads = heads;
+  a.shift = shift;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tiled_dispatch(window, key_window, head_dim, kRefused, [&](auto shape) {
+    using T = typename decltype(shape)::T;
+    static unsigned devices = 0;
+    return launch_tiled<T>(tiled_attention_forward_kernel<T>, T::kForwardSmem,
+                           windows * heads * T::NQT, T::QTHREADS, a, devices, s);
+  });
+}
+
+// dqkv (B, Hp, Wp, 3C) and dtable from dout, qkv, the forward's out and lse;
+// scratch: delta (B windows heads, window^2), partial (B windows key_tiles,
+// (window + key_window - 1)^2 heads) and, where key_window > window,
+// kv_partial (B windows, key_window^2, 2C).
+extern "C" int srpde_tiled_attention_backward(const float* dout, const float* qkv,
+                                              const float* out, const float* lse,
+                                              const float* table, float* dqkv, float* delta,
+                                              float* kv_partial, float* partial, float* dtable,
+                                              int batch, int hp, int wp, int heads, int window,
+                                              int key_window, int head_dim, int shift,
+                                              float scale, void* stream) {
+  const long long windows = tiled_windows(batch, hp, wp, heads, window, key_window, shift);
+  if (windows == 0 || (key_window != window && kv_partial == nullptr)) return kRefused;
+  TArgs a{};
+  a.qkv = qkv;
+  a.table = table;
+  a.dout = dout;
+  a.out_r = out;
+  a.lse_r = lse;
+  a.delta_r = delta;
+  a.dqkv = dqkv;
+  a.delta = delta;
+  a.kvpart = kv_partial;
+  a.partial = partial;
+  a.hp = hp;
+  a.wp = wp;
+  a.heads = heads;
+  a.shift = shift;
+  a.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return tiled_dispatch(window, key_window, head_dim, kRefused, [&](auto shape) {
+    using T = typename decltype(shape)::T;
+    static unsigned dq_devices = 0, dkv_devices = 0;
+    int err = launch_tiled<T>(tiled_attention_dq_kernel<T>, T::kDqSmem, windows * heads * T::NQT,
+                              T::QTHREADS, a, dq_devices, s);
+    if (err != 0) return err;
+    err = launch_tiled<T>(tiled_attention_dkv_kernel<T>, T::kDkvSmem, windows * heads * T::NKT,
+                          T::KTHREADS, a, dkv_devices, s);
+    if (err != 0) return err;
+    const int outs = T::NB * heads;
+    bias_grad_sum_kernel<<<(outs + kSumOuts - 1) / kSumOuts, dim3(kSumOuts, kSumSlices), 0, s>>>(
+        partial, windows * T::NKT, outs, dtable);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0 || !T::OVERLAP) return err;
+    const long long tokens = static_cast<long long>(batch) * hp * wp;
+    const long long work = tokens * (heads * T::D / 2);
+    kv_fold_kernel<T><<<static_cast<unsigned>((work + 255) / 256), 256, 0, s>>>(a, tokens);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

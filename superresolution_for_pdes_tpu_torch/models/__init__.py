@@ -1,5 +1,5 @@
-"""Model zoo: the attention U-Net, the residual CNN, SwinIR, the regime router
-and the weight converters."""
+"""Model zoo: the attention U-Net, the residual CNN, SwinIR, HAT, the regime
+router and the weight converters."""
 
 from superresolution_for_pdes_tpu_torch.models.unet import (  # noqa: F401
     AttentionGate,
@@ -9,6 +9,7 @@ from superresolution_for_pdes_tpu_torch.models.unet import (  # noqa: F401
 )
 from superresolution_for_pdes_tpu_torch.models.resnet import PDEResNet  # noqa: F401
 from superresolution_for_pdes_tpu_torch.models.swinir import SwinIR  # noqa: F401
+from superresolution_for_pdes_tpu_torch.models.hat import HAT  # noqa: F401
 from superresolution_for_pdes_tpu_torch.models.registry import (  # noqa: F401
     available_models,
     build_model,

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+from superresolution_for_pdes_tpu_torch.models.hat import HAT
 from superresolution_for_pdes_tpu_torch.models.resnet import PDEResNet
 from superresolution_for_pdes_tpu_torch.models.swinir import SwinIR
 from superresolution_for_pdes_tpu_torch.models.unet import AttentionUNet
@@ -17,20 +18,26 @@ def _wide_unet(**kw):
     return AttentionUNet(**kw)
 
 
-def _swinir(norm=None, **kw):
-    """SwinIR (``models/swinir.py``); it normalises with LayerNorm only, so a
-    ``norm`` choice (``train --model_norm``) has nothing to apply to."""
-    if norm is not None:
-        raise ValueError(f"swinir has no BatchNorm to replace with norm={norm!r}: "
-                         "it normalises with LayerNorm; leave --model_norm at batch")
-    return SwinIR(**kw)
+def _layer_normed(name: str, cls):
+    """``cls``'s builder: it normalises with LayerNorm only, so a ``norm``
+    choice (``train --model_norm``) has nothing to apply to."""
+
+    def build(norm=None, **kw):
+        if norm is not None:
+            raise ValueError(f"{name} has no BatchNorm to replace with norm={norm!r}: "
+                             "it normalises with LayerNorm; leave --model_norm at batch")
+        return cls(**kw)
+
+    build.__doc__ = f"{cls.__name__} (``{cls.__module__}``); LayerNorm only."
+    return build
 
 
 _REGISTRY: Dict[str, Callable[..., Any]] = {
     "attention_unet": AttentionUNet,
     "attention_unet_wide": _wide_unet,
     "resnet": PDEResNet,
-    "swinir": _swinir,
+    "swinir": _layer_normed("swinir", SwinIR),
+    "hat": _layer_normed("hat", HAT),
 }
 
 

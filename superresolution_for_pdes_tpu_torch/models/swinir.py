@@ -43,9 +43,11 @@ Departures from upstream:
   holds learned tensors only, under upstream's keys. On CUDA it is a
   hand-written CUDA kernel pair (``csrc/window_attention.cu``) in float32
   whose heads keep their size 30, built for the published widths (window 8,
-  heads of 30) and the tests' TINY ones (window 4, heads of 6); bfloat16
-  under autocast is widened to it, and other widths raise. On the CPU a
-  plain PyTorch twin of the same arithmetic.
+  heads of 30) and the tests' TINY ones (window 4, heads of 6), and the
+  tiled kernels beside it for HAT's window 16 with heads of 30
+  (``models/hat.py``, which reuses these modules); bfloat16 under autocast is
+  widened to them, and other widths raise. On the CPU a plain PyTorch twin
+  of the same arithmetic.
 
 The linears and LayerNorms of the Swin blocks and the tokens (:class:`Linear`,
 :class:`LayerNorm`) are ``nn.Linear`` and ``nn.LayerNorm`` with the same
@@ -60,7 +62,7 @@ Parameter count at the published widths (180, 6x6 blocks, 6 heads, window
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -183,12 +185,15 @@ def _unembed(t: torch.Tensor, hp: int, wp: int) -> torch.Tensor:
 
 class SwinIR(nn.Module):
     """Same-resolution SwinIR with the coarse-solution skip. Input
-    ``(N, in_channels, H, W)``, output ``(N, 1, H, W)``."""
+    ``(N, in_channels, H, W)``, output ``(N, 1, H, W)``. ``group`` builds a
+    residual group from ``(dim, depth, heads, window_size, mlp_ratio)``
+    (:class:`ResidualGroup`; HAT's ``models/hat.py`` passes its own)."""
 
     def __init__(self, in_channels: int = 3, embed_dim: int = 180,
                  depths: Sequence[int] = (6,) * 6, num_heads: Sequence[int] = (6,) * 6,
                  window_size: int = 8, mlp_ratio: float = 2.0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 group: Callable[..., nn.Module] = ResidualGroup):
         super().__init__()
         if len(depths) != len(num_heads):
             raise ValueError(f"depths {tuple(depths)} and num_heads {tuple(num_heads)} "
@@ -197,7 +202,7 @@ class SwinIR(nn.Module):
         self.conv_first = nn.Conv2d(in_channels, embed_dim, 3, padding=1)
         self.patch_embed = _PatchEmbed(embed_dim)
         self.layers = nn.ModuleList(
-            ResidualGroup(embed_dim, depth, heads, window_size, mlp_ratio)
+            group(embed_dim, depth, heads, window_size, mlp_ratio)
             for depth, heads in zip(depths, num_heads))
         self.norm = LayerNorm(embed_dim)
         self.conv_after_body = nn.Conv2d(embed_dim, embed_dim, 3, padding=1)
@@ -207,7 +212,7 @@ class SwinIR(nn.Module):
                 if isinstance(m, nn.Linear):
                     nn.init.trunc_normal_(m.weight, std=0.02, generator=generator)
                     m.bias.zero_()
-                elif isinstance(m, WindowAttention):
+                elif hasattr(m, "relative_position_bias_table"):  # a window attention's
                     nn.init.trunc_normal_(m.relative_position_bias_table, std=0.02,
                                           generator=generator)
             init_weights(self, generator)

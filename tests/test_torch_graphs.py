@@ -2,7 +2,7 @@
 as CUDA graphs, and the cache's bookkeeping. On the CPU no level is ever
 captured; the cache's sightings, cascades and eviction are held here with a
 stand-in for the capture, and the capture itself on the card
-(``tests/test_torch_cuda.py``; SwinIR's levels here, marked ``cuda``). Also
+(``tests/test_torch_cuda.py``; SwinIR's and HAT's levels here, marked ``cuda``). Also
 every cascade setting reaching a level's key, the modal correction's band
 index kept on the device, and the kernels' launch tally a replay advances."""
 
@@ -14,7 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from superresolution_for_pdes_tpu_torch.cascade import graphs, modal
 from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
-from superresolution_for_pdes_tpu_torch.models import AttentionUNet, SwinIR
+from superresolution_for_pdes_tpu_torch.models import HAT, AttentionUNet, SwinIR
 from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
 from superresolution_for_pdes_tpu_torch.ops import window_attention as wa
 from superresolution_for_pdes_tpu_torch.ops._build import add_launches, count_launch, launch_tally
@@ -203,20 +203,17 @@ def test_a_cascade_holds_at_most_max_levels(cpu_cache):
     assert cpu_cache.replays == graphs.MAX_LEVELS
 
 
-@pytest.mark.cuda
-def test_swinir_levels_replay_bit_for_bit(level_graphs):
-    """On a card: a one-scene cascade of a published-width SwinIR with four
+def _levels_replay_bit_for_bit(cls, level_graphs):
+    """A one-scene cascade of ``cls`` at its published widths with four
     random per-level experts to 320^2, three times: eager, eager and
-    captured, replayed; the replayed fields equal the eager ones bit for bit
-    (the shift masks, made on the device at the first sighting, are read in
-    place by the graphs). Run with ``python -m pytest --noconftest -q
-    tests/test_torch_graphs.py -k swinir``."""
+    captured, replayed; the replayed fields equal the eager ones bit for
+    bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: a level is captured only there")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = SwinIR(in_channels=5).cuda().eval()
-    sds = [{k: v.cuda() for k, v in SwinIR(
+    model = cls(in_channels=5).cuda().eval()
+    sds = [{k: v.cuda() for k, v in cls(
         in_channels=5, generator=torch.Generator().manual_seed(i)).state_dict().items()}
         for i in range(4)]
     g = torch.Generator(device="cuda").manual_seed(7)
@@ -238,3 +235,20 @@ def test_swinir_levels_replay_bit_for_bit(level_graphs):
     assert (level_graphs.captures, level_graphs.replays) == (3, 3)
     assert all(torch.equal(captured[r], eager[r]) and torch.equal(replayed[r], eager[r])
                for r in res)
+
+
+@pytest.mark.cuda
+def test_swinir_levels_replay_bit_for_bit(level_graphs):
+    """On a card, SwinIR (window 8): the shift masks, made on the device at
+    the first sighting, are read in place by the graphs. Run with ``python -m
+    pytest --noconftest -q tests/test_torch_graphs.py -k replay_bit``."""
+    _levels_replay_bit_for_bit(SwinIR, level_graphs)
+
+
+@pytest.mark.cuda
+def test_hat_levels_replay_bit_for_bit(level_graphs):
+    """On a card, HAT (window 16, key window 24, the CAB): its tiled and
+    overlapping attention kernels and their scratch inside the graphs."""
+    wa.reset_launch_counts()
+    _levels_replay_bit_for_bit(HAT, level_graphs)
+    assert wa.overlap_launch_counts()["overlap_kernel_forward"] == 3 * 3 * 6

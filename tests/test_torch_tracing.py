@@ -18,6 +18,7 @@ from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
 from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
 from superresolution_for_pdes_tpu_torch.models import AttentionUNet
 from superresolution_for_pdes_tpu_torch.models.resnet import PDEResNet
+from superresolution_for_pdes_tpu_torch.models.hat import HAT
 from superresolution_for_pdes_tpu_torch.models.swinir import SwinIR
 from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
 from superresolution_for_pdes_tpu_torch.utils import profiling
@@ -30,7 +31,8 @@ PACKAGE = Path(profiling.__file__).resolve().parents[1]
 SPAN_NAMES = ("cascade", "cascade.level", "cascade.inputs", "cascade.model", "cascade.stitch",
               "cascade.refine", "cascade.modal", "cascade.replay", "multigrid.vcycle",
               "train.step", "train.forward", "physics.loss", "train.backward", "train.clip",
-              "train.optimizer", "swinir.stage", "swinir.attention", "swinir.attention.kernel")
+              "train.optimizer", "swinir.stage", "swinir.attention", "swinir.attention.kernel",
+              "hat.cab", "hat.ocab", "hat.ocab.kernel")
 
 
 def _opened_in_source():
@@ -125,6 +127,29 @@ def test_swinir_kernel_span_never_opens_on_the_twin():
     records, _ = _profiled(lambda: model(x).sum().backward())
     names = [r.name for r in records]
     assert names.count("swinir.attention") == 2 and "swinir.attention.kernel" not in names
+
+
+def test_hat_records_its_blocks_spans():
+    """Under a profiler, a TINY HAT forward and backward on the CPU opens per
+    group ``swinir.stage`` (``n``: tokens), inside it per HAB
+    ``swinir.attention`` (windows times heads) and ``hat.cab`` (tokens), and
+    per OCAB ``hat.ocab`` (windows times heads); the twins open no kernel
+    span."""
+    model = HAT(in_channels=5, embed_dim=12, depths=(2, 3), num_heads=(2, 2), window_size=4,
+                squeeze_factor=3, generator=torch.Generator().manual_seed(6))
+    x = torch.randn(3, 5, 14, 16, generator=torch.Generator().manual_seed(7))
+    records, _ = _profiled(lambda: model(x).sum().backward())
+    stages = [r for r in records if r.name == "swinir.stage"]
+    assert [r.n for r in stages] == [3 * 16 * 16] * 2 and all(r.parent is None for r in stages)
+
+    def inside(stage, name):
+        return [r.n for r in records if r.name == name and r.parent == stage.index]
+
+    assert [inside(s, "swinir.attention") for s in stages] == [[3 * 16 * 2] * 2, [3 * 16 * 2] * 3]
+    assert [inside(s, "hat.cab") for s in stages] == [[3 * 16 * 16] * 2, [3 * 16 * 16] * 3]
+    assert [inside(s, "hat.ocab") for s in stages] == [[3 * 16 * 2]] * 2
+    names = {r.name for r in records}
+    assert not names & {"swinir.attention.kernel", "hat.ocab.kernel"}
 
 
 def test_cascade_records_its_span_tree():

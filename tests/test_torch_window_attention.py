@@ -1,5 +1,5 @@
-"""PyTorch port, ``ops/window_attention.py``: SwinIR's shifted-window attention
-in token layout.
+"""PyTorch port, ``ops/window_attention.py``: SwinIR's and HAT's shifted-window
+attention and HAT's overlapping cross-window attention, in token layout.
 
 On the CPU, the plain twin against the composition it replaced in the model
 (roll the map by ``-shift``, cut it into windows, attend with the bias and
@@ -11,7 +11,10 @@ and bias-table gradient at the published widths and at TINY, plain and
 shifted, on square and non-square maps; the bias gradient bit for bit over
 two runs; bfloat16 widened to the kernels; widths without a kernel and a
 refused launch raising; the launches, the span and the operators' names in
-the profiler. On a card run
+the profiler. The same for the tiled kernels: HAT's window-16 attention
+(plain and shifted) and its overlapping cross-window attention (border
+windows whose keys lie partly outside the map), against the twins, the same
+bits twice. On a card run
 ``python -m pytest --noconftest -q tests/test_torch_window_attention.py``."""
 
 import pytest
@@ -89,6 +92,88 @@ def test_twin_gradcheck(shift):
         (qkv, table))
 
 
+def _unfold_composition(qkv, table, heads, window, key_window, scale):
+    """Upstream's OCAB attention (``hat_arch.py``): q in windows, k and v cut
+    by ``nn.Unfold`` (zero padding) from the map after the linear, the
+    bias of ``calculate_rpi_oca``, ``softmax(q k^T + bias) v``, windows put
+    back; written out here with explicit loops over the windows."""
+    b, hp, wp, c3 = qkv.shape
+    c = c3 // 3
+    d, pad = c // heads, (key_window - window) // 2
+    padded = torch.nn.functional.pad(qkv[..., c:], (0, 0, pad, pad, pad, pad))
+    ori = torch.stack(torch.meshgrid(torch.arange(window), torch.arange(window),
+                                     indexing="ij")).flatten(1)
+    ext = torch.stack(torch.meshgrid(torch.arange(key_window), torch.arange(key_window),
+                                     indexing="ij")).flatten(1)
+    rel = (ext[:, None, :] - ori[:, :, None]).permute(1, 2, 0).clone()
+    rel += window - key_window + 1
+    rel[:, :, 0] *= window + key_window - 1
+    bias = table[rel.sum(-1).view(-1)].view(window ** 2, key_window ** 2, heads).permute(2, 0, 1)
+    out = torch.empty(b, hp, wp, c, dtype=qkv.dtype)
+    for r in range(0, hp, window):
+        for s in range(0, wp, window):
+            q = qkv[:, r:r + window, s:s + window, :c].reshape(b, -1, heads, d).transpose(1, 2)
+            kv = padded[:, r:r + key_window, s:s + key_window].reshape(b, -1, 2, heads, d)
+            k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+            o = ((q * scale) @ k.transpose(-2, -1) + bias).softmax(-1) @ v
+            out[:, r:r + window, s:s + window] = o.transpose(1, 2).reshape(b, window, window, c)
+    return out
+
+
+# (window, key window, heads, head size): the tests' TINY widths and HAT's published ones
+OVERLAP_TINY = (4, 6, 2, 6)
+OVERLAP_PUBLISHED = (16, 24, 6, 30)
+
+
+def _overlap_inputs(window, key_window, heads, d, b, hp, wp, dtype=torch.float64, device="cpu",
+                    seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(b, hp, wp, 3 * heads * d, generator=gen, dtype=dtype, device=device)
+    table = 0.5 * torch.randn((window + key_window - 1) ** 2, heads, generator=gen, dtype=dtype,
+                              device=device)
+    return qkv, table
+
+
+@pytest.mark.parametrize("widths,b,hp,wp", [(OVERLAP_TINY, 2, 8, 8), (OVERLAP_TINY, 1, 12, 8),
+                                            (OVERLAP_TINY, 2, 4, 4),
+                                            (OVERLAP_PUBLISHED, 1, 32, 48)])
+def test_overlap_twin_equals_the_unfold_composition(widths, b, hp, wp):
+    """Border windows attend keys outside the map: zero keys and values
+    whose logits are their bias alone."""
+    window, key_window, heads, d = widths
+    qkv, table = _overlap_inputs(window, key_window, heads, d, b, hp, wp)
+    got = wa.plain_overlapping_window_attention(qkv, table, heads, window, key_window, d ** -0.5)
+    want = _unfold_composition(qkv, table, heads, window, key_window, d ** -0.5)
+    assert got.shape == (b, hp, wp, heads * d)
+    assert float((got - want).abs().max()) <= 1e-12 * float(want.abs().max())
+
+
+def test_overlap_twin_gradcheck():
+    window, key_window, heads, d = OVERLAP_TINY
+    qkv, table = _overlap_inputs(window, key_window, heads, d, 1, 8, 4, seed=1)
+    qkv.requires_grad_(True)
+    table.requires_grad_(True)
+    assert torch.autograd.gradcheck(
+        lambda x, t: wa.plain_overlapping_window_attention(x, t, heads, window, key_window,
+                                                           d ** -0.5), (qkv, table))
+
+
+@pytest.mark.parametrize("window,key_window", [(16, 24), (4, 6), (8, 12)])
+def test_overlap_index_is_a_bijection_onto_the_table(window, key_window):
+    """Every row of the ``(window + key_window - 1)^2``-row table is the bias
+    of exactly one key-minus-query offset."""
+    index = wa.overlap_relative_index(window, key_window)
+    side = window + key_window - 1
+    i, j = torch.arange(window ** 2), torch.arange(key_window ** 2)
+    dr = (j // key_window)[None, :] - (i // window)[:, None]
+    dc = (j % key_window)[None, :] - (i % window)[:, None]
+    offsets = ((dr + window - 1) * side + dc + window - 1).flatten()
+    rows = index.flatten()
+    assert sorted(set(offsets.tolist())) == list(range(side * side))
+    pairs = set(zip(offsets.tolist(), rows.tolist()))
+    assert len(pairs) == side * side and {r for _, r in pairs} == set(range(side * side))
+
+
 def test_the_cpu_runs_the_twin():
     window, heads, d = TINY
     qkv, table = _inputs(window, heads, d, 2, 8, 12, dtype=torch.float32)
@@ -96,22 +181,46 @@ def test_the_cpu_runs_the_twin():
     assert torch.equal(wa.window_attention(qkv, table, heads, window, 2, 0.4),
                        wa.plain_window_attention(qkv, table, heads, window, 2, 0.4))
     assert wa.launch_counts() == {"kernel_forward": 0, "kernel_backward": 0}
+    window, key_window, heads, d = OVERLAP_TINY
+    qkv, table = _overlap_inputs(window, key_window, heads, d, 2, 8, 12, dtype=torch.float32)
+    assert torch.equal(wa.overlapping_window_attention(qkv, table, heads, window, key_window, 0.4),
+                       wa.plain_overlapping_window_attention(qkv, table, heads, window,
+                                                             key_window, 0.4))
+    assert wa.overlap_launch_counts() == {"overlap_kernel_forward": 0,
+                                          "overlap_kernel_backward": 0}
 
 
 @pytest.mark.parametrize("window,heads,d,dtype", [
     (8, 6, 30, torch.float32), (8, 6, 30, torch.bfloat16), (4, 2, 6, torch.float16),
-    (4, 4, 6, torch.float32)])
+    (4, 4, 6, torch.float32), (16, 6, 30, torch.float32), (16, 6, 30, torch.bfloat16)])
 def test_kernel_widths_are_accepted(window, heads, d, dtype):
     qkv, table = _inputs(window, heads, d, 1, 8, 8, dtype=dtype)
     wa.check_kernel_widths(qkv, table.float(), heads, window)
+
+
+@pytest.mark.parametrize("window,key_window,heads,d,dtype,error", [
+    (16, 24, 6, 30, torch.float32, None), (4, 6, 2, 6, torch.bfloat16, None),
+    (16, 24, 3, 30, torch.float32, ValueError),   # an odd number of heads
+    (16, 16, 6, 30, torch.float32, ValueError),   # no overlap: window_attention's
+    (8, 12, 6, 30, torch.float32, ValueError),    # a window without a kernel
+    (16, 24, 6, 30, torch.float64, TypeError)],
+    ids=["published", "tiny-bf16", "odd-heads", "no-overlap", "window", "float64"])
+def test_overlap_widths(window, key_window, heads, d, dtype, error):
+    qkv, table = _overlap_inputs(window, key_window, heads, d, 1, window, window, dtype=dtype)
+    if error is None:
+        wa.check_overlap_widths(qkv, table, heads, window, key_window)
+    else:
+        with pytest.raises(error):
+            wa.check_overlap_widths(qkv, table, heads, window, key_window)
 
 
 @pytest.mark.parametrize("window,heads,d,dtype,error", [
     (8, 3, 30, torch.float32, ValueError),  # an odd number of heads
     (8, 6, 32, torch.float32, ValueError),  # a head size without a kernel
     (5, 2, 6, torch.float32, ValueError),   # a window without a kernel
+    (16, 2, 6, torch.float32, ValueError),  # window 16 with heads of 6
     (8, 6, 30, torch.float64, TypeError)],  # wider than the kernels
-    ids=["odd-heads", "head-size", "window", "float64"])
+    ids=["odd-heads", "head-size", "window", "window-16-head-6", "float64"])
 def test_widths_without_a_kernel_are_refused(window, heads, d, dtype, error):
     """What the CUDA path refuses, rather than run the twin on the card."""
     qkv, table = _inputs(window, heads, d, 1, 2 * window, 2 * window, dtype=dtype)
@@ -264,3 +373,141 @@ def test_the_profiler_sees_the_operators_and_the_span(card):
     assert all(any("scaled_dot_product" in op for op in a.ops) for a in ours)
     spans = [s for s in recorded_spans() if s.name == "swinir.attention.kernel"]
     assert [s.n for s in spans] == [2 * 25 * heads]
+
+
+# ------------------------------------------------------ tiled kernels, on a card
+HAT_WINDOW = (16, 6, 30)
+
+
+def _run_overlap(fn, qkv, table, g, heads, window, key_window, scale):
+    x, t = (v.detach().clone().requires_grad_(True) for v in (qkv, table))
+    out = fn(x, t, heads, window, key_window, scale)
+    (out * g).sum().backward()
+    return out.detach(), x.grad, t.grad
+
+
+def _against_twins(kernel, twin, exact, what):
+    for name, k, t, e, floor in zip(("output", "qkv gradient", "table gradient"), kernel, twin,
+                                    exact, (1e-6, 1e-5, 1e-5)):
+        assert _rel(k, e) <= max(2 * _rel(t, e), floor), (what, name, _rel(k, e), _rel(t, e))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hp,wp", [(4, 48, 48), (1, 32, 64)], ids=["48x48", "32x64"])
+@pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
+def test_window_16_kernels_match_the_twin(card, b, hp, wp, shifted):
+    """HAT's window attention at its published widths (window 16, heads of
+    30) on the tiled kernels: output, qkv and table gradients against the
+    float64 twin, as the pair's (three device launches a backward)."""
+    window, heads, d = HAT_WINDOW
+    shift = window // 2 if shifted else 0
+    qkv, table = _inputs(window, heads, d, b, hp, wp, torch.float32, card)
+    g = torch.randn(b, hp, wp, heads * d, device=card,
+                    generator=torch.Generator(device=card).manual_seed(9))
+    scale = d ** -0.5
+    wa.reset_launch_counts()
+    kernel = _run(wa.window_attention, qkv, table, g, heads, window, shift, scale)
+    assert wa.launch_counts() == {"kernel_forward": 1, "kernel_backward": 1}
+    twin = _run(wa.plain_window_attention, qkv, table, g, heads, window, shift, scale)
+    exact = _run(wa.plain_window_attention, qkv.double(), table.double(), g.double(), heads,
+                 window, shift, scale)
+    torch.cuda.synchronize()
+    _against_twins(kernel, twin, exact, "window 16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,b,hp,wp", [(OVERLAP_PUBLISHED, 4, 48, 48),
+                                            (OVERLAP_PUBLISHED, 1, 32, 64),
+                                            (OVERLAP_TINY, 3, 40, 40), (OVERLAP_TINY, 2, 4, 8)],
+                         ids=["published-48x48", "published-32x64", "tiny-40x40", "tiny-4x8"])
+def test_overlap_kernels_match_the_twin(card, widths, b, hp, wp):
+    """HAT's overlapping attention on its kernels against the float64 twin:
+    border windows whose keys lie outside the map, tokens in up to four key
+    windows (the dK and dV sums)."""
+    window, key_window, heads, d = widths
+    qkv, table = _overlap_inputs(window, key_window, heads, d, b, hp, wp, torch.float32, card)
+    g = torch.randn(b, hp, wp, heads * d, device=card,
+                    generator=torch.Generator(device=card).manual_seed(9))
+    scale = d ** -0.5
+    wa.reset_launch_counts()
+    kernel = _run_overlap(wa.overlapping_window_attention, qkv, table, g, heads, window,
+                          key_window, scale)
+    assert wa.overlap_launch_counts() == {"overlap_kernel_forward": 1,
+                                          "overlap_kernel_backward": 1}
+    assert wa.launch_counts() == {"kernel_forward": 0, "kernel_backward": 0}
+    twin = _run_overlap(wa.plain_overlapping_window_attention, qkv, table, g, heads, window,
+                        key_window, scale)
+    exact = _run_overlap(wa.plain_overlapping_window_attention, qkv.double(), table.double(),
+                         g.double(), heads, window, key_window, scale)
+    torch.cuda.synchronize()
+    _against_twins(kernel, twin, exact, "overlap")
+
+
+@pytest.mark.cuda
+def test_tiled_kernels_give_the_same_bits_twice(card):
+    window, heads, d = HAT_WINDOW
+    qkv, table = _inputs(window, heads, d, 8, 48, 48, torch.float32, card, seed=3)
+    g = torch.randn(8, 48, 48, heads * d, device=card,
+                    generator=torch.Generator(device=card).manual_seed(4))
+    first, second = (_run(wa.window_attention, qkv, table, g, heads, window, 8, d ** -0.5)
+                     for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    window, key_window, heads, d = OVERLAP_PUBLISHED
+    qkv, table = _overlap_inputs(window, key_window, heads, d, 8, 48, 48, torch.float32, card,
+                                 seed=5)
+    first, second = (_run_overlap(wa.overlapping_window_attention, qkv, table, g, heads, window,
+                                  key_window, d ** -0.5) for _ in range(2))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_the_profiler_sees_the_overlap_operators_and_span(card):
+    """The overlapping attention's kernels launch under ``hat::`` operations
+    without ``scaled_dot_product`` in their names (so the window attention's
+    reader does not count them), and the forward inside ``hat.ocab.kernel``."""
+    from portbench import trace
+    from superresolution_for_pdes_tpu_torch.utils.profiling import clear_spans, recorded_spans
+
+    window, key_window, heads, d = OVERLAP_PUBLISHED
+    qkv, table = _overlap_inputs(window, key_window, heads, d, 2, 32, 32, torch.float32, card)
+    g = torch.ones(2, 32, 32, heads * d, device=card)
+
+    def run():
+        _run_overlap(wa.overlapping_window_attention, qkv, table, g, heads, window, key_window,
+                     d ** -0.5)
+        return 1
+
+    run()
+    clear_spans()
+    recorded, _ = trace.record(run, host_ops=True)
+    ours = [a for a in recorded.activities if "tiled_attention" in a.name
+            or "bias_grad_sum" in a.name or "kv_fold" in a.name]
+    assert len(ours) == 5, [a.name for a in ours]
+    assert all(any(op.startswith("hat::overlapping_window_attention") for op in a.ops)
+               and not any("scaled_dot_product" in op for op in a.ops) for a in ours)
+    spans = [s for s in recorded_spans() if s.name == "hat.ocab.kernel"]
+    assert [s.n for s in spans] == [2 * 4 * heads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True], ids=["window-16", "overlap"])
+def test_bfloat16_is_widened_to_the_tiled_kernels(card, overlap):
+    """bfloat16 qkv runs the tiled float32 kernels on its widened values: the
+    output and the qkv gradient are theirs rounded to bfloat16, the table's
+    gradient float32."""
+    if overlap:
+        window, key_window, heads, d = OVERLAP_PUBLISHED
+        qkv, table = _overlap_inputs(window, key_window, heads, d, 2, 32, 48, torch.float32, card,
+                                     seed=5)
+        run, fn, args = _run_overlap, wa.overlapping_window_attention, (window, key_window)
+    else:
+        window, heads, d = HAT_WINDOW
+        qkv, table = _inputs(window, heads, d, 2, 32, 48, torch.float32, card, seed=5)
+        run, fn, args = _run, wa.window_attention, (window, 8)
+    g = torch.randn(2, 32, 48, heads * d, device=card,
+                    generator=torch.Generator(device=card).manual_seed(6))
+    got = run(fn, qkv.bfloat16(), table, g.bfloat16(), heads, *args, d ** -0.5)
+    want = run(fn, qkv.bfloat16().float(), table, g.bfloat16().float(), heads, *args, d ** -0.5)
+    assert [t.dtype for t in got] == [torch.bfloat16, torch.bfloat16, torch.float32]
+    assert torch.equal(got[0], want[0].bfloat16()) and torch.equal(got[1], want[1].bfloat16())
+    assert torch.equal(got[2], want[2])
