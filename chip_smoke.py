@@ -1930,7 +1930,7 @@ def phase_hat_attention(dev: torch.device, smi: str, b: int = 32) -> dict:
     time per call, the twin's, the bound (:func:`attention_bound`) and, as the
     ``library_ms`` yardstick only, SDPA on heads padded to 32 with an
     additive mask of every window's logits. Then
-    the tiled form at the window-8 pair's own shape (``Tiled<8, 8, 30, 8>``,
+    the tiled form at the window-8 pair's own shape (``Tiled<8, 8, 30, 64>``,
     SwinIR's (32, 40^2), shifted) against the twin and timed beside the
     pair: whether the pair earns its place beside the tiled kernels. Last,
     one train step of a published-width HAT at (32, 40^2) through
@@ -2050,7 +2050,7 @@ def phase_hat_attention(dev: torch.device, smi: str, b: int = 32) -> dict:
 
     exact = twin8(qkv.double(), table.double(), g.double())
     twin = twin8()
-    against_twins(f"Tiled<8, 8, 30, 8> at ({b}, {hp8}^2) shift {shift}", tiled8(), twin, exact)
+    against_twins(f"Tiled<8, 8, 30, 64> at ({b}, {hp8}^2) shift {shift}", tiled8(), twin, exact)
     against_twins(f"the window-8 pair at ({b}, {hp8}^2) shift {shift}", pair8(), twin, exact)
     del exact, twin
     cmp = {}
@@ -2059,7 +2059,7 @@ def phase_hat_attention(dev: torch.device, smi: str, b: int = 32) -> dict:
         cmp[f"{name}_ms"] = time_ms(f, 20)
     out["tiled_vs_pair_window_8"] = cmp
     log(f"[hat attention] window 8 at ({b}, {hp8}^2), shifted, forward + backward: "
-        f"Tiled<8, 8, 30, 8> device {cmp['tiled_device_ms']:.4f} ms ({cmp['tiled_ms']:.4f} ms "
+        f"Tiled<8, 8, 30, 64> device {cmp['tiled_device_ms']:.4f} ms ({cmp['tiled_ms']:.4f} ms "
         f"per call), the pair {cmp['pair_device_ms']:.4f} ms ({cmp['pair_ms']:.4f} ms per "
         f"call); on {smi}")
     del qkv, table, g

@@ -671,13 +671,15 @@ extern "C" int srpde_window_attention_backward(const float* dout, const float* q
 //     key's place in its window minus the query's in its own and OFF = WQ -
 //     WK + 1 (upstream's calculate_rpi_oca, whose negative indices wrap).
 //
+// Key places: a key-window row holds WKP = WK rounded up to 4 places, and a
+// key tile is KT consecutive places (a place past the row or the window is
+// no key), so that runs of 4 places lie in one row.
+//
 // Forward: one block per (window, head, tile of QT queries: QT / WQ rows of
-// the query window), 2 QT threads (a lane owns 4 query rows by KT / 8 key
-// columns of a key tile, as the pair's forward). It walks the key tiles (KR
-// rows of the key window each) with an online softmax: running max and sum
-// a row, the output rescaled when the max grows, so no logits are held past
-// their tile. It writes the output in token layout and each row's
-// log-sum-exp (log2 units).
+// the query window). It walks the key tiles with an online softmax: running
+// max and sum a row, the output rescaled when the max grows, so no logits
+// are held past their tile. It writes the output in token layout and each
+// row's log-sum-exp (log2 units).
 //
 // Backward, three launches (four with an overlap) and no float atomics:
 //   dq:  one block per query tile, walking the key tiles: delta = rowsum(dO
@@ -685,60 +687,139 @@ extern "C" int srpde_window_attention_backward(const float* dout, const float* q
 //        delta), dQ = scale dL K, written in the qkv linear's layout; delta
 //        is written for the next launch;
 //   dkv: one block per (window, head, key tile), walking the query tiles with
-//        the logits transposed (a lane owns 4 key rows): dV = P^T dO, dK =
-//        scale dL^T Q, and dL folded into the block's bins of the relative
-//        offset (each bin a thread's, added in a fixed order) and written as
-//        one partial of the table a block; dK and dV go to the qkv linear's
-//        layout (WK == WQ: every key in exactly one window) or, with an
-//        overlap, to one row a window and key of a scratch (kv_partial);
+//        the logits transposed: dV = P^T dO, dK = scale dL^T Q, and dL folded
+//        into the block's bins of the relative offset (each bin a thread's,
+//        added in a fixed order) and written as one partial of the table a
+//        block; dK and dV go to the qkv linear's layout (WK == WQ: every key
+//        in exactly one window) or, with an overlap, to one row a window and
+//        key of a scratch (kv_partial);
 //   the bias table's partials summed in a fixed order (bias_grad_sum_kernel);
 //   with an overlap, kv_fold_kernel: each token's dK and dV summed over the
 //        (at most 2 x 2) key windows that hold it, in a fixed order.
 //
-// Instantiated for (WQ, WK, D) = (16, 16, 30), HAB at HAT's published widths;
-// (16, 24, 30), OCAB at those widths; (4, 6, 6), OCAB at the tests' TINY
-// widths; and (8, 8, 30), SwinIR's window, which the wrapper sends to the pair
-// above: it is built so that chip_smoke.py can time the tiled form against the
-// pair at the pair's own shape. An even number of heads (16-byte aligned runs,
-// as the pair).
+// What bounds them on an H100: float32 FMAs on the CUDA cores (67 TFLOP/s)
+// and the shared-memory reads that feed them. At hat_train_b32's shape (32
+// maps of 48^2, 6 heads of 30) a HAB call (forward and backward) makes 0.98 G
+// warp-FMAs, 1.06 ms at the FMA rate of 132 SMs at 1.755 GHz, against 0.19 ms
+// for its 640 MB; OCAB 2.2 times that. An SM issues four warp-FMAs a clock
+// and reads one 128-byte wavefront of shared memory a clock; a warp's
+// 16-byte shared load costs four wavefronts, so a product keeps up with the
+// FMAs only if a lane does 16 FMAs for each 16-byte load.
+//
+// So every dense product is a register-tiled outer product (outer8): a lane
+// owns an 8 x 8 tile of it and, at each step k of the contraction, reads its
+// 8 values of each operand as two 16-byte loads (the places 4 g .. 4 g + 3
+// and n / 2 + 4 g .. of an extent n, at8) and does 64 FMAs: 16 wavefronts
+// for 64 warp-FMAs, the FMA rate's own pace (the pair and the kernels before
+// them read 12 loads for 128 FMAs, 16 for 128, or 8 for 64: two thirds or
+// half of it). The next step's values are read before this step's FMAs.
+// That needs each operand's row k contiguous along the lane's 8 values:
+//   - q k^T and dO v^T contract over the head (k = 0 .. D - 1), so q, k, v
+//     and dO are also held k-major (head column outermost: rows of QT or KT
+//     floats), transposed once a tile from their token-major staging
+//     (to_kmajor: a lane moves a 16-byte run, consecutive lanes consecutive
+//     tokens, into distinct banks both ways);
+//   - P V, dL K, P^T dO and dL^T Q contract over tokens, so their right
+//     operands are the token-major tiles (16-byte cp.async runs, rows of
+//     PITCH), and P and dL are written into shared memory as the next
+//     product reads them: pt[key][query] forward, dl[key][query] in dq, pb
+//     and lb [query][key] in dkv, each lane storing its tile transposed by
+//     16-byte stores along the dimension its quarter-warp's lanes span.
+// The logits add the bias per 4 x 4 quarter of a lane's tile (logits8: a
+// run of 4 queries of one row against a run of 4 key places of one row
+// reads 7 consecutive entries of the table, and its region mask and key
+// window once), then one FMA a logit.
+// A lane holds one 8 x 8 tile that lives across the walk (O, dQ, dK or dV)
+// and at most one more (S or dP), so the threads a block and the tiles'
+// mapping come from QT, KT and DP alone: S and dP of a tile pair side by
+// side (BTHREADS = 2 (QT / 8)(KT / 8)), the walked product split over its
+// contraction among the threads that remain (FSPLIT, QSPLIT, KSPLIT), its
+// parts added once, in order, after the walk. The next tile's token-major
+// copies are in flight while this tile computes (dq's k and dkv's q and dO
+// in two buffers; the forward's k and v one tile apart), and are
+// transposed once this tile's S and dP are formed: in dq and dkv by the S
+// lanes while the dP lanes form dL, in the forward beside the row maxima.
+//
+// On an H100 at HAT's published widths (nvcc -Xptxas -v, sm_90a): the
+// forward 221 (HAB) and 219 (OCAB) registers, dq 243 and 246, dkv 238 and
+// 248, no spills; shared memory 61,712, 81,936 and 110,624 bytes (HAB),
+// 63,952, 84,176 and 115,104 (OCAB): three blocks of two warps an SM
+// forward, two of four backward.
+//
+// Instantiated for (WQ, WK, D, KT) = (16, 16, 30, 64), HAB at HAT's published
+// widths; (16, 24, 30, 64), OCAB at those widths; (4, 6, 6, 48), OCAB at the
+// tests' TINY widths; and (8, 8, 30, 64), SwinIR's window, which the wrapper
+// sends to the pair above: it is built so that chip_smoke.py can time the
+// tiled form against the pair at the pair's own shape. An even number of
+// heads (16-byte aligned runs, as the pair), and a shift a multiple of 4 (a
+// run of 4 places never straddles two regions).
 // float32 on the CUDA cores; each launch allocates nothing.
 
 namespace {
 
 constexpr float kNeg = -1e30f;  // the logit of a place past the key window
 
-template <int WQ_, int WK_, int D_, int KR_>
+template <int WQ_, int WK_, int D_, int KT_>
 struct Tiled {
-  static constexpr int WQ = WQ_, WK = WK_, D = D_, KR = KR_;
+  static constexpr int WQ = WQ_, WK = WK_, D = D_, KT = KT_;
   static constexpr bool OVERLAP = WK > WQ;
   static constexpr int PAD = (WK - WQ) / 2;
   static constexpr int NQ = WQ * WQ, NK = WK * WK;
   static constexpr int QT = NQ < 64 ? NQ : 64;  // queries a tile
   static constexpr int QR = QT / WQ;            // query-window rows a tile
   static constexpr int NQT = NQ / QT;
-  static constexpr int KT = KR * WK;            // key places a tile (the last may pass WK rows)
-  static constexpr int NKT = (WK + KR - 1) / KR;
+  static constexpr int WKP = (WK + 3) / 4 * 4;    // key places a key-window row (WK, rounded up)
+  static constexpr int NKP = WK * WKP;            // key places
+  static constexpr int NKT = (NKP + KT - 1) / KT;  // tiles of KT key places (the last may pass NKP)
   static constexpr int L = WQ + WK - 1;         // side of the bias table
   static constexpr int NB = L * L;
   static constexpr int NBP = (NB + 3) / 4 * 4;
   static constexpr int OFF = WQ - WK + 1;
-  static constexpr int QTHREADS = 2 * QT, KTHREADS = 2 * KT;
-  static constexpr int TC = KT / 8, QC = QT / 8;
-  static constexpr int DP = D + 2, PITCH = DP + 4, OC = DP / 8, CH = DP / 4;
-  static constexpr int SK = KT + 4, SQ = QT + 4;
-  // the walked tiles' tokens, copies, regions and bias parts are double-buffered
-  static constexpr size_t kTokBytes = 2 * (QT + KT) * (sizeof(long long) + 2 * sizeof(int));
-  static constexpr size_t kForwardSmem =
-      (QT * PITCH + 4 * KT * PITCH + KT * SQ + NBP) * sizeof(float) + kTokBytes;
-  static constexpr size_t kDqSmem =
-      (2 * QT * PITCH + 4 * KT * PITCH + QT * SK + NBP) * sizeof(float) + kTokBytes;
+  static constexpr int DP = D + 2, PITCH = DP + 4, CH = DP / 4;  // token-major runs and rows
+  static constexpr int QK = D * QT, KK = D * KT;                 // a k-major tile (rows of QT, KT)
+  static constexpr int QTM = QT * PITCH, KTM = KT * PITCH;       // a token-major tile
+  static constexpr int NQG = QT / 8, NKG = KT / 8, NDG = DP / 8;  // 8-wide groups
+  static constexpr int S_TILES = NQG * NKG;   // of S (or dP) for a query tile and a key tile
+  static constexpr int O_TILES = NQG * NDG;   // of O, or dQ
+  static constexpr int KV_TILES = 2 * NKG * NDG;  // of dK and dV
+  static constexpr int FTHREADS = (S_TILES + O_TILES - 1) / O_TILES * O_TILES;
+  static constexpr int FSPLIT = FTHREADS / O_TILES;  // O's key tile split among threads
+  static constexpr int BTHREADS = 2 * S_TILES;       // S and dP side by side
+  static constexpr int QSPLIT = BTHREADS / O_TILES;  // dQ's key tile split
+  static constexpr int KSPLIT = BTHREADS / KV_TILES;  // dK's and dV's query tile split
+  // shared memory, in floats from the start: the forward's (q token-major
+  // first staged where P^T goes)
+  static constexpr int F_Q = 0, F_K = F_Q + QK, F_KT = F_K + KK, F_V = F_KT + KTM,
+                       F_PT = F_V + KTM, F_TMAX = F_PT + KT * QT, F_TSUM = F_TMAX + NKG * QT,
+                       F_M = F_TSUM + NKG * QT, F_L = F_M + QT, F_A = F_L + QT,
+                       F_BIAS = F_A + QT, F_END = F_BIAS + NBP;
+  // dq's: k token-major in two buffers; q, dO and the output first staged
+  // token-major where dL, k and v (k-major) and the key tiles go
+  static constexpr int B_Q = 0, B_G = B_Q + QK, B_K = B_G + QK, B_V = B_K + KK, B_KT = B_V + KK,
+                       B_VT = B_KT + 2 * KTM, B_DL = B_VT + KTM, B_LSE = B_DL + KT * QT,
+                       B_DELTA = B_LSE + QT, B_BIAS = B_DELTA + QT, B_END = B_BIAS + NBP;
+  // dkv's: the query tiles token-major in two buffers; k and v first staged
+  // token-major where P and dL go
+  static constexpr int V_K = 0, V_V = V_K + KK, V_Q = V_V + KK, V_G = V_Q + QK, V_TM = V_G + QK,
+                       V_P = V_TM + 4 * QTM, V_DL = V_P + QT * KT, V_BIAS = V_DL + QT * KT,
+                       V_BINS = V_BIAS + NBP, V_END = V_BINS + NBP;
+  // tokens, regions and the keys' bias parts: the walked tiles' in two buffers
+  static constexpr size_t kTokBytes =
+      (QT + 2 * KT) * sizeof(long long) + (QT + 4 * KT) * sizeof(int);
+  static constexpr size_t kForwardSmem = F_END * sizeof(float) + kTokBytes;
+  static constexpr size_t kDqSmem = B_END * sizeof(float) + kTokBytes;
   static constexpr size_t kDkvSmem =
-      (2 * KT * PITCH + 4 * QT * PITCH + 2 * KT * SQ + 2 * NBP + 4 * QT) * sizeof(float) +
-      kTokBytes;
-  static_assert(QT % 16 == 0 && KT % 16 == 0 && QT % WQ == 0 && NQ % QT == 0, "tiles");
+      V_END * sizeof(float) + (KT + 2 * QT) * sizeof(long long) + (2 * KT + 2 * QT) * sizeof(int);
+  static_assert(QT % 8 == 0 && KT % 8 == 0 && QT % WQ == 0 && NQ % QT == 0 && WQ % 4 == 0,
+                "tiles, and runs of 4 queries or key places in one window row");
   static_assert(D % 4 == 2 && DP % 8 == 0, "a head's 16-byte aligned run is D + 2 floats");
   static_assert((WK - WQ) % 2 == 0 && PAD <= WQ / 2, "a key window centred on its query window");
-  static_assert(SK >= PITCH, "the output tile is staged where dL goes");
+  static_assert(KT % FSPLIT == 0 && BTHREADS % O_TILES == 0 && KT % QSPLIT == 0 &&
+                BTHREADS % KV_TILES == 0 && QT % KSPLIT == 0, "splits");
+  static_assert(QTM <= KT * QT && QTM <= 2 * KK && QTM <= KTM && 2 * KTM <= 2 * QT * KT,
+                "token-major tiles staged in the places named above");
+  static_assert((FSPLIT - 1) * 64 * O_TILES <= F_TMAX && (QSPLIT - 1) * 64 * O_TILES <= B_LSE &&
+                (KSPLIT - 1) * 64 * KV_TILES <= V_BIAS, "split parts fit the staged tiles");
 };
 
 struct TArgs {
@@ -789,24 +870,31 @@ __device__ __forceinline__ void rolled(const TArgs& a, long long b, int r, int c
   region = a.shift ? side_region<WQ>(r, a.hp, a.shift) * 3 + side_region<WQ>(c, a.wp, a.shift) : 0;
 }
 
-// Query t of tile qt: its map place, region and base of the bias index.
+// Query t of tile qt: its map place and region.
 template <class T>
 __device__ __forceinline__ void query_token(const TArgs& a, const Where& w, int qt, int t,
-                                            long long* tok, int* region, int* base) {
-  const int i = qt * T::QT + t, qr = i / T::WQ, qc = i % T::WQ;
-  rolled<T::WQ>(a, w.b, w.r0 + qr, w.c0 + qc, tok[t], region[t]);
-  base[t] = T::OVERLAP ? T::OFF * (T::L + 1) - (qr * T::L + qc)
-                       : (qr + T::WQ - 1) * T::L + qc + T::WQ - 1;
+                                            long long* tok, int* region) {
+  const int i = qt * T::QT + t;
+  rolled<T::WQ>(a, w.b, w.r0 + i / T::WQ, w.c0 + i % T::WQ, tok[t], region[t]);
 }
 
-// Key place t of tile kt: its map place (-1: a zero key outside the map),
-// region (-1: past the key window, no key) and part of the bias index.
+// The base of the bias index of query i of the window.
+template <class T>
+__device__ __forceinline__ int query_base(int i) {
+  const int qr = i / T::WQ, qc = i % T::WQ;
+  return T::OVERLAP ? T::OFF * (T::L + 1) - (qr * T::L + qc)
+                    : (qr + T::WQ - 1) * T::L + qc + T::WQ - 1;
+}
+
+// Key place t of tile kt (row kr, column kc of the key window, WKP places
+// a row): its map place (-1: a zero key outside the map), region (-1: past
+// the key window, no key) and part of the bias index.
 template <class T>
 __device__ __forceinline__ void key_token(const TArgs& a, const Where& w, int kt, int t,
                                           long long* tok, int* region, int* part) {
-  const int j = kt * T::KT + t, kr = j / T::WK, kc = j % T::WK;
+  const int j = kt * T::KT + t, kr = j / T::WKP, kc = j % T::WKP;
   part[t] = T::OVERLAP ? kr * T::L + kc : -(kr * T::L + kc);
-  if (kr >= T::WK) {
+  if (kr >= T::WK || kc >= T::WK) {
     tok[t] = -1;
     region[t] = -1;
   } else if (T::OVERLAP) {
@@ -816,17 +904,6 @@ __device__ __forceinline__ void key_token(const TArgs& a, const Where& w, int kt
   } else {
     rolled<T::WQ>(a, w.b, w.r0 + kr, w.c0 + kc, tok[t], region[t]);
   }
-}
-
-// The logit (log2 units) of q.k = s between a query and a key.
-template <class T>
-__device__ __forceinline__ float tiled_logit(float s, float scale2, const float* bias, int qbase,
-                                             int qregion, int kpart, int kregion) {
-  if (kregion < 0) return kNeg;
-  int b = qbase + kpart;
-  if (T::OVERLAP && b < 0) b += T::NB;
-  const float l = fmaf(s, scale2, bias[b]);
-  return qregion == kregion ? l : l + kRegionMask;
 }
 
 // The bin of the table for the key-minus-query offset (dr, dc).
@@ -841,7 +918,8 @@ __device__ __forceinline__ int offset_bin(int dr, int dc) {
 
 // n tokens' runs of DP floats around the head at column `col` of their rows
 // of `src` (rows of `stride` floats) into `dst` (rows of PITCH), by 16-byte
-// asynchronous copies; a token at -1 is filled with zeros.
+// asynchronous copies; a token at -1 is filled with zeros. The two columns
+// of a run outside the head are whatever the row holds there.
 template <class T>
 __device__ __forceinline__ void stage_tokens(const float* __restrict__ src, long long stride,
                                              int col, const long long* tok, int n, float* dst,
@@ -859,325 +937,473 @@ __device__ __forceinline__ void stage_tokens(const float* __restrict__ src, long
   }
 }
 
-__device__ __forceinline__ void copies_done() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Waits for every copy this thread has issued.
+__device__ __forceinline__ void copies_landed() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void copies_issued() { asm volatile("cp.async.commit_group;\n" ::); }
-
-// Waits for this thread's copies but those of the last group issued.
-__device__ __forceinline__ void copies_but_last_done() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+// The i-th of a lane's 8 places along an extent of N for its group g: 4 g +
+// i, then N / 2 + 4 g + i - 4 (two runs of 4 floats, 16-byte aligned).
+template <int N>
+__device__ __forceinline__ int at8(int g, int i) {
+  return i < 4 ? 4 * g + i : N / 2 + 4 * g + i - 4;
 }
 
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
 
-// After copies_done(): the two columns of each staged run outside the head
-// set to zero, by the thread that copied them (the same loop as the tile's
-// stage_tokens call, so no barrier is needed before); a __syncthreads() must
-// follow.
-template <class T>
-__device__ __forceinline__ void zero_outside(float* dst, int n, int sh, int nthreads) {
-  const int edge = sh ? 0 : T::CH - 1, zero = sh ? 0 : T::D;
-  for (int idx = threadIdx.x; idx < n * T::CH; idx += nthreads) {
-    const int t = idx / T::CH;
-    if (idx - t * T::CH == edge) {
-      *reinterpret_cast<float2*>(dst + t * T::PITCH + zero) = make_float2(0.0f, 0.0f);
+// Two runs of 4 floats to p and p + H.
+template <int H>
+__device__ __forceinline__ void sts8(float* p, float x0, float x1, float x2, float x3, float x4,
+                                     float x5, float x6, float x7) {
+  *reinterpret_cast<float4*>(p) = make_float4(x0, x1, x2, x3);
+  *reinterpret_cast<float4*>(p + H) = make_float4(x4, x5, x6, x7);
+}
+
+template <int H>
+__device__ __forceinline__ void lds8(const float* p, float (&v)[8]) {
+  const float4 x = lds4(p), y = lds4(p + H);
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w, v[4] = y.x, v[5] = y.y, v[6] = y.z, v[7] = y.w;
+}
+
+// N staged tokens' head (from column sh of their token-major runs) into
+// `dst` k-major: column d of token t at dst[d N + t]. A lane moves one
+// 16-byte run of a token a step; consecutive lanes take consecutive tokens
+// (PITCH / 4 is odd, so their 16-byte reads and their 4-byte writes fall in
+// distinct banks). Lanes [0, NT) of the block call it, as `lane`.
+template <class T, int N, int NT>
+__device__ __forceinline__ void to_kmajor(const float* src, float* dst, int sh, int lane) {
+  static_assert(T::PITCH % 8 == 4, "an odd number of 16-byte runs a row");
+  for (int idx = lane; idx < N * T::CH; idx += NT) {
+    const int t = idx % N, ch = idx / N;
+    const float4 x = lds4(src + t * T::PITCH + 4 * ch);
+    const float v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = 4 * ch + e - sh;
+      if (d >= 0 && d < T::D) dst[d * N + t] = v[e];
     }
   }
 }
 
-// The key tiles of a (window, head), walked with the next tile's tokens
-// located and its copies in flight while `body(k, v, kreg, kpart)` computes
-// on this one (two buffers of each); every thread of the block calls it.
-template <class T, class Body>
-__device__ __forceinline__ void walk_key_tiles(const TArgs& a, const Where& w, int c, int head,
-                                               int sh, float* kv, long long* ktok, int* kreg,
-                                               int* kpart, Body body) {
-  constexpr int KV = T::KT * T::PITCH;
-  auto locate_and_copy = [&](int kt, int buf) {
-    long long* tok = ktok + buf * T::KT;
-    for (int t = threadIdx.x; t < T::KT; t += T::QTHREADS) {
-      key_token<T>(a, w, kt, t, tok, kreg + buf * T::KT, kpart + buf * T::KT);
+template <int H>
+__device__ __forceinline__ void ldg8(const float* p, float (&v)[8]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 y = __ldg(reinterpret_cast<const float4*>(p + H));
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w, v[4] = y.x, v[5] = y.y, v[6] = y.z, v[7] = y.w;
+}
+
+// The logits (log2 units) of a lane's 8 x 8 tile of q.k sums, in place: its
+// rows are queries of group qg and its columns key places of group kg, or
+// (KEY_ROWS) the other way round. Each quarter of the tile pairs a run of 4
+// queries of one query-window row with a run of 4 key places of one key-
+// window row, so its 16 bias indices are 7 consecutive ones (the query's
+// place minus the key's, or its negative) and its region mask and key
+// window are the runs' (the key window's end is checked a place where a row
+// holds WK % 4 != 0 places): 7 reads of the table a quarter, then one FMA a
+// logit.
+template <class T, bool KEY_ROWS>
+__device__ __forceinline__ void logits8(float (&s)[8][8], float scale2, const float* bias,
+                                        int qt, int qg, const int* qreg, int kg,
+                                        const int* kpart, const int* kreg) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int q0 = at8<T::QT>(qg, 4 * r), qb = query_base<T>(qt * T::QT + q0), qr = qreg[q0];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int k0 = at8<T::KT>(kg, 4 * c), kr = kreg[k0];
+      const float mask = kr < 0 ? kNeg : (qr == kr ? 0.0f : kRegionMask);
+      const int b0 = kr < 0 ? 3 : qb + kpart[k0];  // a key past the window reads any entry
+      float v[7];  // v[e]: query place minus key place e - 3 (OVERLAP: key minus query)
+#pragma unroll
+      for (int e = 0; e < 7; ++e) {
+        int b = b0 + e - 3;
+        if (T::OVERLAP && b < 0) b += T::NB;
+        v[e] = bias[b] + mask;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float& x = KEY_ROWS ? s[4 * c + j][4 * r + i] : s[4 * r + i][4 * c + j];
+          x = fmaf(x, scale2, v[T::OVERLAP ? 3 + j - i : 3 + i - j]);
+          // a key-window row of WK % 4 places ends inside a run: those past it, no key
+          if (T::WK % 4 && kreg[k0 + j] < 0) x = kNeg;
+        }
     }
-    __syncthreads();
-    stage_tokens<T>(a.qkv, 3LL * c, c + head * T::D, tok, T::KT, kv + 2 * buf * KV, T::QTHREADS);
-    stage_tokens<T>(a.qkv, 3LL * c, 2 * c + head * T::D, tok, T::KT, kv + (2 * buf + 1) * KV,
-                    T::QTHREADS);
-    copies_issued();
+  }
+}
+
+__device__ __forceinline__ void zero8(float (&acc)[8][8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+}
+
+// acc[i][j] += sum over k < K of a[k AP + at8(i)] b[k BP + at8(j)], with a and
+// b at the lane's group (its 8 values of row k at [0, 4) and [AH, AH + 4)):
+// two 16-byte reads of each operand and 64 FMAs a step.
+template <int K, int AP, int AH, int BP, int BH>
+__device__ __forceinline__ void outer8(float (&acc)[8][8], const float* __restrict__ a,
+                                       const float* __restrict__ b) {
+  static_assert(K % 2 == 0, "steps in pairs");
+  float av[2][8], bv[2][8];  // this step's values and the next's
+  lds8<AH>(a, av[0]);
+  lds8<BH>(b, bv[0]);
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    if (k + 1 < K) {
+      lds8<AH>(a + (k + 1) * AP, av[(k + 1) & 1]);
+      lds8<BH>(b + (k + 1) * BP, bv[(k + 1) & 1]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[k & 1][i], bv[k & 1][j], acc[i][j]);
+  }
+}
+
+// A lane's 8 staged columns of one token (at8 of its column group g along
+// DP) that lie in the head (from column sh), times mul, to its head slice.
+template <class T>
+__device__ __forceinline__ void store8(float* dst, int g, int sh, const float (&v)[8], float mul) {
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    const int col = at8<T::DP>(g, e) - sh;
+    if (col >= 0 && col < T::D) {
+      *reinterpret_cast<float2*>(dst + col) = make_float2(v[e] * mul, v[e + 1] * mul);
+    }
+  }
+}
+
+// The split parts of a product a lane group's tile was split into, added in
+// order of part into part 0's lanes: lane (part p, tile w) of W tiles passes
+// its tile through red (the staged tiles' place, read no more) to lane (0, w).
+// Every thread calls it.
+template <int W, int SPLIT>
+__device__ __forceinline__ void add_parts(float (&acc)[8][8], float* red, int part, int w) {
+  if (part > 0) {
+#pragma unroll
+    for (int v = 0; v < 64; ++v) red[((part - 1) * 64 + v) * W + w] = acc[v / 8][v % 8];
+  }
+  __syncthreads();
+  if (part == 0) {
+    for (int p = 1; p < SPLIT; ++p) {
+#pragma unroll
+      for (int v = 0; v < 64; ++v) acc[v / 8][v % 8] += red[((p - 1) * 64 + v) * W + w];
+    }
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::FTHREADS) tiled_attention_forward_kernel(const TArgs a) {
+  constexpr int NT = T::FTHREADS, QT = T::QT, KT = T::KT;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* qk = sm + T::F_Q;     // q, k-major: qk[d QT + query]
+  float* kk = sm + T::F_K;     // the key tile's k, k-major
+  float* ktm = sm + T::F_KT;   // the next key tile's k, token-major
+  float* vt = sm + T::F_V;     // the key tile's v, token-major
+  float* pt = sm + T::F_PT;    // P^T: pt[key QT + query]; first q, token-major
+  float* tmax = sm + T::F_TMAX;  // a row's max and sum over each key group of the tile
+  float* tsum = sm + T::F_TSUM;
+  float* mrow = sm + T::F_M;   // the running max and sum of a row, and its rescale
+  float* lrow = sm + T::F_L;
+  float* alpha = sm + T::F_A;
+  float* bias = sm + T::F_BIAS;
+  long long* qtok = reinterpret_cast<long long*>(sm + T::F_END);
+  long long* ktok = qtok + QT;  // two buffers
+  int* qreg = reinterpret_cast<int*>(ktok + 2 * KT);
+  int* kreg = qreg + QT;        // two buffers
+  int* kpart = kreg + 2 * KT;   // two buffers
+
+  const int tid = threadIdx.x;
+  const int qt = static_cast<int>(blockIdx.x % T::NQT);
+  const long long wh = blockIdx.x / T::NQT;
+  const int head = static_cast<int>(wh % a.heads);
+  const Where w = where<T::WQ>(a, wh / a.heads);
+  const int c = a.heads * T::D, sh = head_shift<T::D>(head);
+  auto locate_keys = [&](int kt, int buf) {
+    for (int t = tid; t < KT; t += NT) {
+      key_token<T>(a, w, kt, t, ktok + buf * KT, kreg + buf * KT, kpart + buf * KT);
+    }
   };
-  locate_and_copy(0, 0);
+  for (int n = tid; n < T::NB; n += NT) bias[n] = a.table[n * a.heads + head] * kLog2e;
+  for (int t = tid; t < QT; t += NT) {
+    query_token<T>(a, w, qt, t, qtok, qreg);
+    mrow[t] = kNeg;
+    lrow[t] = 0.0f;
+  }
+  locate_keys(0, 0);
+  __syncthreads();
+  stage_tokens<T>(a.qkv, 3LL * c, head * T::D, qtok, QT, pt, NT);
+  stage_tokens<T>(a.qkv, 3LL * c, c + head * T::D, ktok, KT, ktm, NT);
+  stage_tokens<T>(a.qkv, 3LL * c, 2 * c + head * T::D, ktok, KT, vt, NT);
+  copies_landed();
+  __syncthreads();
+  to_kmajor<T, QT, NT>(pt, qk, sh, tid);
+  to_kmajor<T, KT, NT>(ktm, kk, sh, tid);
+  if (T::NKT > 1) locate_keys(1, 1);
+  __syncthreads();
+
+  const float scale2 = a.scale * kLog2e;
+  const bool s_lane = tid < T::S_TILES;  // a tile of S: queries of group sq, keys of group sk
+  const int sq = tid % T::NQG, sk = tid / T::NQG;
+  const int og = tid % T::NDG, oq = (tid / T::NDG) % T::NQG, part = tid / T::O_TILES;
+  constexpr int KS = KT / T::FSPLIT;  // keys of O's part
+  float o[8][8];
+  zero8(o);
   for (int kt = 0; kt < T::NKT; ++kt) {
     const int cur = kt & 1;
-    if (kt + 1 < T::NKT) {
-      locate_and_copy(kt + 1, cur ^ 1);
-      copies_but_last_done();
-    } else {
-      copies_done();
+    const bool next = kt + 1 < T::NKT;
+    if (next) {  // the next tile's k comes in while this one computes
+      stage_tokens<T>(a.qkv, 3LL * c, c + head * T::D, ktok + (cur ^ 1) * KT, KT, ktm, NT);
     }
-    float* k = kv + 2 * cur * KV;
-    zero_outside<T>(k, T::KT, sh, T::QTHREADS);
-    zero_outside<T>(k + KV, T::KT, sh, T::QTHREADS);
+    const int* kreg_t = kreg + cur * KT;
+    const int* kpart_t = kpart + cur * KT;
+    float s[8][8];
+    if (s_lane) {
+      zero8(s);
+      outer8<T::D, QT, QT / 2, KT, KT / 2>(s, qk + 4 * sq, kk + 4 * sk);
+      logits8<T, false>(s, scale2, bias, qt, sq, qreg, sk, kpart_t, kreg_t);
+      float mx[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        mx[i] = kNeg;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx[i] = fmaxf(mx[i], s[i][j]);
+      }
+      sts8<QT / 2>(tmax + sk * QT + 4 * sq, mx[0], mx[1], mx[2], mx[3], mx[4], mx[5], mx[6],
+                   mx[7]);
+    }
+    copies_landed();  // the next tile's k, and this one's v
     __syncthreads();
-    body(k, k + KV, kreg + cur * T::KT, kpart + cur * T::KT);
-    __syncthreads();  // this tile's buffers are read before the next but one fills them
-  }
-}
-
-template <class T>
-__global__ void __launch_bounds__(T::QTHREADS) tiled_attention_forward_kernel(const TArgs a) {
-  extern __shared__ float4 smem4[];
-  float* q = reinterpret_cast<float*>(smem4);
-  float* kv = q + T::QT * T::PITCH;      // two buffers of a key tile's k then v
-  float* pt = kv + 4 * T::KT * T::PITCH;  // the key tile's P^T: pt[j SQ + i]
-  float* bias = pt + T::KT * T::SQ;
-  long long* qtok = reinterpret_cast<long long*>(bias + T::NBP);
-  long long* ktok = qtok + T::QT;  // two buffers
-  int* qreg = reinterpret_cast<int*>(ktok + 2 * T::KT);
-  int* qbase = qreg + T::QT;
-  int* kreg = qbase + T::QT;       // two buffers
-  int* kpart = kreg + 2 * T::KT;   // two buffers
-
-  const int tid = threadIdx.x;
-  const int qt = static_cast<int>(blockIdx.x % T::NQT);
-  const long long wh = blockIdx.x / T::NQT;
-  const int head = static_cast<int>(wh % a.heads);
-  const Where w = where<T::WQ>(a, wh / a.heads);
-  for (int n = tid; n < T::NB; n += T::QTHREADS) bias[n] = a.table[n * a.heads + head] * kLog2e;
-  for (int t = tid; t < T::QT; t += T::QTHREADS) query_token<T>(a, w, qt, t, qtok, qreg, qbase);
-  __syncthreads();
-  const int c = a.heads * T::D, sh = head_shift<T::D>(head);
-  stage_tokens<T>(a.qkv, 3LL * c, head * T::D, qtok, T::QT, q, T::QTHREADS);
-  copies_done();
-  zero_outside<T>(q, T::QT, sh, T::QTHREADS);
-
-  const int lane_id = tid & 31, cg = lane_id & 7, c0 = cg * T::OC;
-  const int row0 = (tid >> 5) * 16 + (lane_id >> 3) * 4;
-  const float scale2 = a.scale * kLog2e;
-  float m[4], l[4], o[4][T::OC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNeg;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int e = 0; e < T::OC; ++e) o[i][e] = 0.0f;
-  }
-  walk_key_tiles<T>(a, w, c, head, sh, kv, ktok, kreg, kpart,
-                    [&](const float* k, const float* v, const int* kreg, const int* kpart) {
-    float s[4][T::TC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < T::TC; ++j) s[i][j] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < T::DP; kk += 4) {
-      float4 qa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = *reinterpret_cast<const float4*>(q + (row0 + i) * T::PITCH + kk);
-      }
-#pragma unroll
-      for (int j = 0; j < T::TC; ++j) {
-        const float4 kb = *reinterpret_cast<const float4*>(k + (cg + 8 * j) * T::PITCH + kk);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[i][j] = dot4(qa[i], kb, s[i][j]);
-      }
+    if (next) {  // k is read: the next tile's takes its place; its tokens' buffer is free
+      to_kmajor<T, KT, NT>(ktm, kk, sh, tid);
+      if (kt + 2 < T::NKT) locate_keys(kt + 2, cur);
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + i;
+    for (int q = tid; q < QT; q += NT) {
       float mt = kNeg;
-#pragma unroll
-      for (int j = 0; j < T::TC; ++j) {
-        const int col = cg + 8 * j;
-        s[i][j] = tiled_logit<T>(s[i][j], scale2, bias, qbase[r], qreg[r], kpart[col], kreg[col]);
-        mt = fmaxf(mt, s[i][j]);
-      }
-#pragma unroll
-      for (int x = 1; x < 8; x <<= 1) mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, x));
-      const float mnew = fmaxf(m[i], mt), alpha = exp2f(m[i] - mnew);
-      float sum = 0.0f;
-#pragma unroll
-      for (int j = 0; j < T::TC; ++j) {
-        s[i][j] = exp2f(s[i][j] - mnew);
-        sum += s[i][j];
-      }
-      l[i] = fmaf(l[i], alpha, row_sum(sum));
-      m[i] = mnew;
-#pragma unroll
-      for (int e = 0; e < T::OC; ++e) o[i][e] *= alpha;
+      for (int g = 0; g < T::NKG; ++g) mt = fmaxf(mt, tmax[g * QT + q]);
+      const float mnew = fmaxf(mrow[q], mt);
+      alpha[q] = exp2f(mrow[q] - mnew);
+      mrow[q] = mnew;
     }
+    __syncthreads();
+    if (s_lane) {
+      float m[8], sum[8];
+      lds8<QT / 2>(mrow + 4 * sq, m);
 #pragma unroll
-    for (int j = 0; j < T::TC; ++j) {
-      *reinterpret_cast<float4*>(pt + (cg + 8 * j) * T::SQ + row0) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncwarp();  // a row group reads only the P^T its own lanes wrote
-#pragma unroll 4
-    for (int j = 0; j < T::KT; ++j) {
-      const float4 p = *reinterpret_cast<const float4*>(pt + j * T::SQ + row0);
-      float vb[T::OC];
-      load_cols<T::OC>(v + j * T::PITCH + c0, vb);
+      for (int i = 0; i < 8; ++i) {
+        sum[i] = 0.0f;
 #pragma unroll
-      for (int e = 0; e < T::OC; ++e) {
-        o[0][e] = fmaf(p.x, vb[e], o[0][e]);
-        o[1][e] = fmaf(p.y, vb[e], o[1][e]);
-        o[2][e] = fmaf(p.z, vb[e], o[2][e]);
-        o[3][e] = fmaf(p.w, vb[e], o[3][e]);
-      }
-    }
-  });
-  float lse[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    store_cols<T::D, T::OC>(a.out + qtok[row0 + i] * c + head * T::D, c0, sh, o[i], 1.0f / l[i]);
-    lse[i] = m[i] + log2f(l[i]);
-  }
-  if (cg == 0) {
-    *reinterpret_cast<float4*>(a.lse + wh * T::NQ + qt * T::QT + row0) =
-        make_float4(lse[0], lse[1], lse[2], lse[3]);
-  }
-}
-
-template <class T>
-__global__ void __launch_bounds__(T::QTHREADS) tiled_attention_dq_kernel(const TArgs a) {
-  extern __shared__ float4 smem4[];
-  float* q = reinterpret_cast<float*>(smem4);
-  float* g = q + T::QT * T::PITCH;        // dO
-  float* kv = g + T::QT * T::PITCH;       // two buffers of a key tile's k then v
-  float* dl = kv + 4 * T::KT * T::PITCH;  // dL, row-major; first the output, staged
-  float* bias = dl + T::QT * T::SK;
-  long long* qtok = reinterpret_cast<long long*>(bias + T::NBP);
-  long long* ktok = qtok + T::QT;  // two buffers
-  int* qreg = reinterpret_cast<int*>(ktok + 2 * T::KT);
-  int* qbase = qreg + T::QT;
-  int* kreg = qbase + T::QT;       // two buffers
-  int* kpart = kreg + 2 * T::KT;   // two buffers
-
-  const int tid = threadIdx.x;
-  const int qt = static_cast<int>(blockIdx.x % T::NQT);
-  const long long wh = blockIdx.x / T::NQT;
-  const int head = static_cast<int>(wh % a.heads);
-  const Where w = where<T::WQ>(a, wh / a.heads);
-  for (int n = tid; n < T::NB; n += T::QTHREADS) bias[n] = a.table[n * a.heads + head] * kLog2e;
-  for (int t = tid; t < T::QT; t += T::QTHREADS) query_token<T>(a, w, qt, t, qtok, qreg, qbase);
-  __syncthreads();
-  const int c = a.heads * T::D, sh = head_shift<T::D>(head);
-  stage_tokens<T>(a.qkv, 3LL * c, head * T::D, qtok, T::QT, q, T::QTHREADS);
-  stage_tokens<T>(a.dout, c, head * T::D, qtok, T::QT, g, T::QTHREADS);
-  stage_tokens<T>(a.out_r, c, head * T::D, qtok, T::QT, dl, T::QTHREADS);
-  copies_done();
-  zero_outside<T>(q, T::QT, sh, T::QTHREADS);
-  zero_outside<T>(g, T::QT, sh, T::QTHREADS);
-  zero_outside<T>(dl, T::QT, sh, T::QTHREADS);
-  __syncthreads();
-
-  const int lane_id = tid & 31, cg = lane_id & 7, c0 = cg * T::OC;
-  const int row0 = (tid >> 5) * 16 + (lane_id >> 3) * 4;
-  const long long at = wh * T::NQ + qt * T::QT + row0;
-  float delta[4], lse[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float gv[T::OC], ov[T::OC];
-    load_cols<T::OC>(g + (row0 + i) * T::PITCH + c0, gv);
-    load_cols<T::OC>(dl + (row0 + i) * T::PITCH + c0, ov);
-    float acc = 0.0f;
-#pragma unroll
-    for (int e = 0; e < T::OC; ++e) acc = fmaf(gv[e], ov[e], acc);
-    delta[i] = row_sum(acc);  // rowsum(dO o O) = rowsum(P o dP)
-    lse[i] = a.lse_r[at + i];
-  }
-  if (cg == 0) {
-    *reinterpret_cast<float4*>(a.delta + at) = make_float4(delta[0], delta[1], delta[2], delta[3]);
-  }
-  const float scale2 = a.scale * kLog2e;
-  float dq[4][T::OC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < T::OC; ++e) dq[i][e] = 0.0f;
-  walk_key_tiles<T>(a, w, c, head, sh, kv, ktok, kreg, kpart,
-                    [&](const float* k, const float* v, const int* kreg, const int* kpart) {
-    float s[4][T::TC], dp[4][T::TC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < T::TC; ++j) s[i][j] = dp[i][j] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < T::DP; kk += 4) {
-      float4 qa[4], ga[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = *reinterpret_cast<const float4*>(q + (row0 + i) * T::PITCH + kk);
-        ga[i] = *reinterpret_cast<const float4*>(g + (row0 + i) * T::PITCH + kk);
-      }
-#pragma unroll
-      for (int j = 0; j < T::TC; ++j) {
-        const float4 kb = *reinterpret_cast<const float4*>(k + (cg + 8 * j) * T::PITCH + kk);
-        const float4 vb = *reinterpret_cast<const float4*>(v + (cg + 8 * j) * T::PITCH + kk);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][j] = dot4(qa[i], kb, s[i][j]);
-          dp[i][j] = dot4(ga[i], vb, dp[i][j]);
+        for (int j = 0; j < 8; ++j) {
+          s[i][j] = exp2f(s[i][j] - m[i]);
+          sum[i] += s[i][j];
         }
       }
-    }
+      sts8<QT / 2>(tsum + sk * QT + 4 * sq, sum[0], sum[1], sum[2], sum[3], sum[4], sum[5],
+                   sum[6], sum[7]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = row0 + i;
-#pragma unroll
-      for (int j = 0; j < T::TC; ++j) {
-        const int col = cg + 8 * j;
-        const float p = exp2f(tiled_logit<T>(s[i][j], scale2, bias, qbase[r], qreg[r], kpart[col],
-                                             kreg[col]) - lse[i]);
-        dl[r * T::SK + col] = p * (dp[i][j] - delta[i]);
+      for (int j = 0; j < 8; ++j) {
+        sts8<QT / 2>(pt + at8<KT>(sk, j) * QT + 4 * sq, s[0][j], s[1][j], s[2][j], s[3][j],
+                     s[4][j], s[5][j], s[6][j], s[7][j]);
       }
     }
-    __syncwarp();  // a row group reads only the dL its own lanes wrote
-#pragma unroll 2
-    for (int jc = 0; jc < T::KT; jc += 4) {
-      float4 l4[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        l4[i] = *reinterpret_cast<const float4*>(dl + (row0 + i) * T::SK + jc);
-      }
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float kb[T::OC];
-        load_cols<T::OC>(k + (jc + jj) * T::PITCH + c0, kb);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int e = 0; e < T::OC; ++e) dq[i][e] = fmaf(lane(l4[i], jj), kb[e], dq[i][e]);
-      }
+    __syncthreads();
+    for (int q = tid; q < QT; q += NT) {
+      float sum = 0.0f;
+      for (int g = 0; g < T::NKG; ++g) sum += tsum[g * QT + q];
+      lrow[q] = fmaf(lrow[q], alpha[q], sum);
     }
-  });
+    float al[8];
+    lds8<QT / 2>(alpha + 4 * oq, al);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    store_cols<T::D, T::OC>(a.dqkv + qtok[row0 + i] * (3LL * c) + head * T::D, c0, sh, dq[i],
-                            a.scale);
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) o[i][j] *= al[i];
+    outer8<KS, QT, QT / 2, T::PITCH, T::DP / 2>(o, pt + part * KS * QT + 4 * oq,
+                                                vt + part * KS * T::PITCH + 4 * og);
+    __syncthreads();
+    if (next) {  // v is read
+      stage_tokens<T>(a.qkv, 3LL * c, 2 * c + head * T::D, ktok + (cur ^ 1) * KT, KT, vt, NT);
+    }
+  }
+  add_parts<T::O_TILES, T::FSPLIT>(o, sm, part, tid % T::O_TILES);
+  if (part == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q = at8<QT>(oq, i);
+      store8<T>(a.out + qtok[q] * c + head * T::D, og, sh, o[i], 1.0f / lrow[q]);
+    }
+  }
+  for (int q = tid; q < QT; q += NT) {
+    a.lse[wh * T::NQ + qt * QT + q] = mrow[q] + log2f(lrow[q]);
   }
 }
 
 template <class T>
-__global__ void __launch_bounds__(T::KTHREADS) tiled_attention_dkv_kernel(const TArgs a) {
+__global__ void __launch_bounds__(T::BTHREADS) tiled_attention_dq_kernel(const TArgs a) {
+  constexpr int NT = T::BTHREADS, QT = T::QT, KT = T::KT;
   extern __shared__ float4 smem4[];
-  constexpr int QG = T::QT * T::PITCH;
-  float* k = reinterpret_cast<float*>(smem4);
-  float* v = k + T::KT * T::PITCH;
-  float* qg = v + T::KT * T::PITCH;  // two buffers of a query tile's q then dO
-  float* pt = qg + 4 * QG;           // P^T, pt[j SQ + i]
-  float* dlt = pt + T::KT * T::SQ;   // dL^T
-  float* bias = dlt + T::KT * T::SQ;
-  float* bins = bias + T::NBP;       // the block's sums by key-minus-query offset
-  float* lses = bins + T::NBP;       // two buffers
-  float* deltas = lses + 2 * T::QT;  // two buffers
-  long long* ktok = reinterpret_cast<long long*>(deltas + 2 * T::QT);
-  long long* qtoks = ktok + T::KT;   // two buffers
-  int* kreg = reinterpret_cast<int*>(qtoks + 2 * T::QT);
-  int* kpart = kreg + T::KT;
-  int* qregs = kpart + T::KT;        // two buffers
-  int* qbases = qregs + 2 * T::QT;   // two buffers
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* qk = sm + T::B_Q;    // q, k-major
+  float* gk = sm + T::B_G;    // dO, k-major
+  float* kk = sm + T::B_K;    // the key tile's k and v, k-major
+  float* vk = sm + T::B_V;
+  float* ktm = sm + T::B_KT;  // k, token-major, this tile's and the next's
+  float* vtm = sm + T::B_VT;  // the next tile's v, token-major
+  float* dl = sm + T::B_DL;   // P, then dL: dl[key QT + query]
+  float* lse = sm + T::B_LSE;
+  float* delta = sm + T::B_DELTA;
+  float* bias = sm + T::B_BIAS;
+  long long* qtok = reinterpret_cast<long long*>(sm + T::B_END);
+  long long* ktok = qtok + QT;  // two buffers
+  int* qreg = reinterpret_cast<int*>(ktok + 2 * KT);
+  int* kreg = qreg + QT;        // two buffers
+  int* kpart = kreg + 2 * KT;   // two buffers
+
+  const int tid = threadIdx.x;
+  const int qt = static_cast<int>(blockIdx.x % T::NQT);
+  const long long wh = blockIdx.x / T::NQT;
+  const int head = static_cast<int>(wh % a.heads);
+  const Where w = where<T::WQ>(a, wh / a.heads);
+  const int c = a.heads * T::D, sh = head_shift<T::D>(head);
+  const long long at = wh * T::NQ + qt * QT;
+  auto locate_keys = [&](int kt, int buf) {
+    for (int t = tid; t < KT; t += NT) {
+      key_token<T>(a, w, kt, t, ktok + buf * KT, kreg + buf * KT, kpart + buf * KT);
+    }
+  };
+  auto stage_keys = [&](int buf, int into) {  // key tile buffer buf's k and v, token-major
+    stage_tokens<T>(a.qkv, 3LL * c, c + head * T::D, ktok + buf * KT, KT, ktm + into * T::KTM,
+                    NT);
+    stage_tokens<T>(a.qkv, 3LL * c, 2 * c + head * T::D, ktok + buf * KT, KT, vtm, NT);
+  };
+  for (int n = tid; n < T::NB; n += NT) bias[n] = a.table[n * a.heads + head] * kLog2e;
+  for (int t = tid; t < QT; t += NT) {
+    query_token<T>(a, w, qt, t, qtok, qreg);
+    lse[t] = a.lse_r[at + t];
+  }
+  locate_keys(0, 0);
+  __syncthreads();
+  // q, dO and the output, token-major, in the places of dL, k and v (k-major)
+  // and the second key tile; the first key tile's k and v beside them
+  float* g_tm = kk;
+  float* o_tm = ktm + T::KTM;
+  stage_tokens<T>(a.qkv, 3LL * c, head * T::D, qtok, QT, dl, NT);
+  stage_tokens<T>(a.dout, c, head * T::D, qtok, QT, g_tm, NT);
+  stage_tokens<T>(a.out_r, c, head * T::D, qtok, QT, o_tm, NT);
+  stage_keys(0, 0);
+  copies_landed();
+  __syncthreads();
+  for (int q = tid; q < QT; q += NT) {
+    float acc = 0.0f;
+    for (int d = sh; d < sh + T::D; ++d) {
+      acc = fmaf(g_tm[q * T::PITCH + d], o_tm[q * T::PITCH + d], acc);
+    }
+    delta[q] = acc;  // rowsum(dO o O) = rowsum(P o dP)
+    a.delta[at + q] = acc;
+  }
+  to_kmajor<T, QT, NT>(dl, qk, sh, tid);
+  to_kmajor<T, QT, NT>(g_tm, gk, sh, tid);
+  __syncthreads();
+  to_kmajor<T, KT, NT>(ktm, kk, sh, tid);
+  to_kmajor<T, KT, NT>(vtm, vk, sh, tid);
+  if (T::NKT > 1) locate_keys(1, 1);
+  __syncthreads();
+
+  const float scale2 = a.scale * kLog2e;
+  // S (lanes [0, S_TILES)) and dP (the rest) of the same tile places side by side
+  const bool s_lane = tid < T::S_TILES;
+  const int tile = s_lane ? tid : tid - T::S_TILES;
+  const int sq = tile % T::NQG, sk = tile / T::NQG;
+  const float* sa = (s_lane ? qk : gk) + 4 * sq;
+  const float* sb = (s_lane ? kk : vk) + 4 * sk;
+  const int og = tid % T::NDG, oq = (tid / T::NDG) % T::NQG, part = tid / T::O_TILES;
+  constexpr int KS = KT / T::QSPLIT;  // keys of dQ's part
+  float dq[8][8];
+  zero8(dq);
+  for (int kt = 0; kt < T::NKT; ++kt) {
+    const int cur = kt & 1;
+    const bool next = kt + 1 < T::NKT;
+    if (next) stage_keys(cur ^ 1, cur ^ 1);  // the next tile's k and v land while this one computes
+    const int* kreg_t = kreg + cur * KT;
+    const int* kpart_t = kpart + cur * KT;
+    float s[8][8];
+    zero8(s);
+    outer8<T::D, QT, QT / 2, KT, KT / 2>(s, sa, sb);
+    if (s_lane) {
+      logits8<T, false>(s, scale2, bias, qt, sq, qreg, sk, kpart_t, kreg_t);
+      float lq[8];
+      lds8<QT / 2>(lse + 4 * sq, lq);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = exp2f(s[i][j] - lq[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sts8<QT / 2>(dl + at8<KT>(sk, j) * QT + 4 * sq, s[0][j], s[1][j], s[2][j], s[3][j],
+                     s[4][j], s[5][j], s[6][j], s[7][j]);
+      }
+    }
+    copies_landed();  // the next tile's k and v
+    __syncthreads();
+    if (next && kt + 2 < T::NKT) locate_keys(kt + 2, cur);  // this tile's buffer is free
+    if (s_lane && next) {  // k and v k-major are read: the next tile's take their place
+      to_kmajor<T, KT, T::S_TILES>(ktm + (cur ^ 1) * T::KTM, kk, sh, tid);
+      to_kmajor<T, KT, T::S_TILES>(vtm, vk, sh, tid);
+    }
+    if (!s_lane) {  // dL = P o (dP - delta), over P in place
+      float dlt[8];
+      lds8<QT / 2>(delta + 4 * sq, dlt);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* row = dl + at8<KT>(sk, j) * QT + 4 * sq;
+        float p[8];
+        lds8<QT / 2>(row, p);
+        sts8<QT / 2>(row, p[0] * (s[0][j] - dlt[0]), p[1] * (s[1][j] - dlt[1]),
+                     p[2] * (s[2][j] - dlt[2]), p[3] * (s[3][j] - dlt[3]),
+                     p[4] * (s[4][j] - dlt[4]), p[5] * (s[5][j] - dlt[5]),
+                     p[6] * (s[6][j] - dlt[6]), p[7] * (s[7][j] - dlt[7]));
+      }
+    }
+    __syncthreads();
+    outer8<KS, QT, QT / 2, T::PITCH, T::DP / 2>(dq, dl + part * KS * QT + 4 * oq,
+                                                ktm + cur * T::KTM + part * KS * T::PITCH +
+                                                    4 * og);
+    __syncthreads();
+  }
+  add_parts<T::O_TILES, T::QSPLIT>(dq, sm, part, tid % T::O_TILES);
+  if (part == 0) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      store8<T>(a.dqkv + qtok[at8<QT>(oq, i)] * (3LL * c) + head * T::D, og, sh, dq[i], a.scale);
+    }
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(T::BTHREADS) tiled_attention_dkv_kernel(const TArgs a) {
+  constexpr int NT = T::BTHREADS, QT = T::QT, KT = T::KT;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* kk = sm + T::V_K;    // k and v, k-major
+  float* vk = sm + T::V_V;
+  float* qk = sm + T::V_Q;    // the query tile's q and dO, k-major
+  float* gk = sm + T::V_G;
+  float* tm = sm + T::V_TM;   // q then dO, token-major, of this query tile and the next
+  float* pb = sm + T::V_P;    // P: pb[query KT + key]; first k and v, token-major
+  float* lb = sm + T::V_DL;   // dL, the same layout
+  float* bias = sm + T::V_BIAS;
+  float* bins = sm + T::V_BINS;  // the block's sums by key-minus-query offset
+  long long* ktok = reinterpret_cast<long long*>(sm + T::V_END);
+  long long* qtoks = ktok + KT;  // two buffers
+  int* kreg = reinterpret_cast<int*>(qtoks + 2 * QT);
+  int* kpart = kreg + KT;
+  int* qregs = kpart + KT;        // two buffers
 
   const int tid = threadIdx.x;
   const int kt = static_cast<int>(blockIdx.x % T::NKT);
@@ -1185,159 +1411,139 @@ __global__ void __launch_bounds__(T::KTHREADS) tiled_attention_dkv_kernel(const 
   const int head = static_cast<int>(wh % a.heads);
   const long long window = wh / a.heads;
   const Where w = where<T::WQ>(a, window);
-  for (int n = tid; n < T::NB; n += T::KTHREADS) {
+  const int c = a.heads * T::D, sh = head_shift<T::D>(head);
+  // a query tile's tokens and regions into buffer buf
+  auto locate_queries = [&](int qt, int buf) {
+    for (int t = tid; t < QT; t += NT) {
+      query_token<T>(a, w, qt, t, qtoks + buf * QT, qregs + buf * QT);
+    }
+  };
+  auto stage_queries = [&](int buf) {  // its q and dO, token-major, into buffer buf
+    stage_tokens<T>(a.qkv, 3LL * c, head * T::D, qtoks + buf * QT, QT, tm + 2 * buf * T::QTM,
+                    NT);
+    stage_tokens<T>(a.dout, c, head * T::D, qtoks + buf * QT, QT, tm + (2 * buf + 1) * T::QTM,
+                    NT);
+  };
+  for (int n = tid; n < T::NB; n += NT) {
     bias[n] = a.table[n * a.heads + head] * kLog2e;
     bins[n] = 0.0f;
   }
-  for (int t = tid; t < T::KT; t += T::KTHREADS) key_token<T>(a, w, kt, t, ktok, kreg, kpart);
+  for (int t = tid; t < KT; t += NT) key_token<T>(a, w, kt, t, ktok, kreg, kpart);
+  locate_queries(0, 0);
   __syncthreads();
-  const int c = a.heads * T::D, sh = head_shift<T::D>(head);
-  stage_tokens<T>(a.qkv, 3LL * c, c + head * T::D, ktok, T::KT, k, T::KTHREADS);
-  stage_tokens<T>(a.qkv, 3LL * c, 2 * c + head * T::D, ktok, T::KT, v, T::KTHREADS);
-  copies_done();
-  zero_outside<T>(k, T::KT, sh, T::KTHREADS);
-  zero_outside<T>(v, T::KT, sh, T::KTHREADS);
+  stage_tokens<T>(a.qkv, 3LL * c, c + head * T::D, ktok, KT, pb, NT);
+  stage_tokens<T>(a.qkv, 3LL * c, 2 * c + head * T::D, ktok, KT, pb + T::KTM, NT);
+  stage_queries(0);
+  copies_landed();
+  __syncthreads();
+  to_kmajor<T, KT, NT>(pb, kk, sh, tid);
+  to_kmajor<T, KT, NT>(pb + T::KTM, vk, sh, tid);
+  to_kmajor<T, QT, NT>(tm, qk, sh, tid);
+  to_kmajor<T, QT, NT>(tm + T::QTM, gk, sh, tid);
+  if (T::NQT > 1) locate_queries(1, 1);
+  __syncthreads();
 
-  const int lane_id = tid & 31, cg = lane_id & 7, c0 = cg * T::OC;
-  const int row0 = (tid >> 5) * 16 + (lane_id >> 3) * 4;  // 4 key rows
   const float scale2 = a.scale * kLog2e;
-  float dk[4][T::OC], dv[4][T::OC];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int e = 0; e < T::OC; ++e) dk[j][e] = dv[j][e] = 0.0f;
-  const int kr_lo = kt * T::KR, kr_hi = min(kr_lo + T::KR, T::WK);
-  // the query tiles, walked with the next tile's tokens, statistics and
-  // copies in flight while this one computes (two buffers of each)
-  auto locate_and_copy = [&](int qt, int buf) {
-    const long long at = wh * T::NQ + qt * T::QT;
-    long long* tok = qtoks + buf * T::QT;
-    for (int t = tid; t < T::QT; t += T::KTHREADS) {
-      query_token<T>(a, w, qt, t, tok, qregs + buf * T::QT, qbases + buf * T::QT);
-      lses[buf * T::QT + t] = a.lse_r[at + t];
-      deltas[buf * T::QT + t] = a.delta_r[at + t];
-    }
-    __syncthreads();
-    stage_tokens<T>(a.qkv, 3LL * c, head * T::D, tok, T::QT, qg + 2 * buf * QG, T::KTHREADS);
-    stage_tokens<T>(a.dout, c, head * T::D, tok, T::QT, qg + (2 * buf + 1) * QG, T::KTHREADS);
-    copies_issued();
-  };
-  locate_and_copy(0, 0);
+  // S^T (lanes [0, S_TILES)) and dP^T (the rest): keys of group sk, queries of group sq
+  const bool s_lane = tid < T::S_TILES;
+  const int tile = s_lane ? tid : tid - T::S_TILES;
+  const int sk = tile % T::NKG, sq = tile / T::NKG;
+  const float* sa = (s_lane ? kk : vk) + 4 * sk;
+  const float* sb = (s_lane ? qk : gk) + 4 * sq;
+  // dV (lanes [0, NT / 2)) and dK (the rest): keys of group ok, columns of group og
+  const bool v_lane = tid < NT / 2;
+  const int u = v_lane ? tid : tid - NT / 2;
+  const int og = u % T::NDG, ok = (u / T::NDG) % T::NKG, part = u / (T::KV_TILES / 2);
+  constexpr int QS = QT / T::KSPLIT;  // queries of dK's and dV's part
+  const float* pa = (v_lane ? pb : lb) + part * QS * KT + 4 * ok;
+  const int pbt = (v_lane ? T::QTM : 0) + part * QS * T::PITCH + 4 * og;  // in a query buffer
+  float acc[8][8];
+  zero8(acc);
+  // the key places of this tile, [j_lo, j_hi), on the key window's rows [kr_lo, kr_hi]
+  const int j_lo = kt * KT, j_hi = min(j_lo + KT, T::NKP);
+  const int kr_lo = j_lo / T::WKP, kr_hi = (j_hi - 1) / T::WKP;
   for (int qt = 0; qt < T::NQT; ++qt) {
     const int cur = qt & 1;
-    if (qt + 1 < T::NQT) {
-      // the last tile's q, dO, tokens and statistics of buffer cur ^ 1 are read
-      locate_and_copy(qt + 1, cur ^ 1);
-      copies_but_last_done();
-    } else {
-      copies_done();
+    const bool next = qt + 1 < T::NQT;
+    if (next) stage_queries(cur ^ 1);
+    const int* qreg = qregs + cur * QT;
+    const long long at = wh * T::NQ + qt * QT;  // the tile's statistics
+    float s[8][8];
+    zero8(s);
+    outer8<T::D, KT, KT / 2, QT, QT / 2>(s, sa, sb);
+    if (s_lane) {
+      logits8<T, true>(s, scale2, bias, qt, sq, qreg, sk, kpart, kreg);
+      float lq[8];
+      ldg8<QT / 2>(a.lse_r + at + 4 * sq, lq);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = exp2f(s[i][j] - lq[j]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        sts8<KT / 2>(pb + at8<QT>(sq, j) * KT + 4 * sk, s[0][j], s[1][j], s[2][j], s[3][j],
+                     s[4][j], s[5][j], s[6][j], s[7][j]);
+      }
     }
-    const float* q = qg + 2 * cur * QG;
-    const float* g = q + QG;
-    const int* qreg = qregs + cur * T::QT;
-    const int* qbase = qbases + cur * T::QT;
-    const float* lse = lses + cur * T::QT;
-    const float* delta = deltas + cur * T::QT;
-    zero_outside<T>(qg + 2 * cur * QG, T::QT, sh, T::KTHREADS);
-    zero_outside<T>(qg + (2 * cur + 1) * QG, T::QT, sh, T::KTHREADS);
+    copies_landed();  // the next tile's q and dO
     __syncthreads();
-
-    float s[4][T::QC], dp[4][T::QC];
+    if (next && qt + 2 < T::NQT) locate_queries(qt + 2, cur);  // this tile's buffer is free
+    if (s_lane && next) {  // q and dO k-major are read: the next tile's take their place
+      to_kmajor<T, QT, T::S_TILES>(tm + 2 * (cur ^ 1) * T::QTM, qk, sh, tid);
+      to_kmajor<T, QT, T::S_TILES>(tm + (2 * (cur ^ 1) + 1) * T::QTM, gk, sh, tid);
+    }
+    if (!s_lane) {  // dL = P o (dP - delta)
+      float dlt[8];
+      ldg8<QT / 2>(a.delta_r + at + 4 * sq, dlt);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int i = 0; i < T::QC; ++i) s[j][i] = dp[j][i] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < T::DP; kk += 4) {
-      float4 ka[4], va[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ka[j] = *reinterpret_cast<const float4*>(k + (row0 + j) * T::PITCH + kk);
-        va[j] = *reinterpret_cast<const float4*>(v + (row0 + j) * T::PITCH + kk);
-      }
-#pragma unroll
-      for (int i = 0; i < T::QC; ++i) {
-        const float4 qb = *reinterpret_cast<const float4*>(q + (cg + 8 * i) * T::PITCH + kk);
-        const float4 gb = *reinterpret_cast<const float4*>(g + (cg + 8 * i) * T::PITCH + kk);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[j][i] = dot4(ka[j], qb, s[j][i]);
-          dp[j][i] = dot4(va[j], gb, dp[j][i]);
-        }
+      for (int j = 0; j < 8; ++j) {
+        const int off = at8<QT>(sq, j) * KT + 4 * sk;
+        float p[8];
+        lds8<KT / 2>(pb + off, p);
+        sts8<KT / 2>(lb + off, p[0] * (s[0][j] - dlt[j]), p[1] * (s[1][j] - dlt[j]),
+                     p[2] * (s[2][j] - dlt[j]), p[3] * (s[3][j] - dlt[j]),
+                     p[4] * (s[4][j] - dlt[j]), p[5] * (s[5][j] - dlt[j]),
+                     p[6] * (s[6][j] - dlt[j]), p[7] * (s[7][j] - dlt[j]));
       }
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = row0 + j;
-#pragma unroll
-      for (int i = 0; i < T::QC; ++i) {
-        const int col = cg + 8 * i;
-        const float p = exp2f(tiled_logit<T>(s[j][i], scale2, bias, qbase[col], qreg[col],
-                                             kpart[r], kreg[r]) - lse[col]);
-        pt[r * T::SQ + col] = p;
-        dlt[r * T::SQ + col] = p * (dp[j][i] - delta[col]);
-      }
-    }
-    __syncwarp();  // a row group reads only the rows its own lanes wrote
-#pragma unroll 2
-    for (int ic = 0; ic < T::QT; ic += 4) {
-      float4 p4[4], l4[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p4[j] = *reinterpret_cast<const float4*>(pt + (row0 + j) * T::SQ + ic);
-        l4[j] = *reinterpret_cast<const float4*>(dlt + (row0 + j) * T::SQ + ic);
-      }
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        float gv[T::OC], qv[T::OC];
-        load_cols<T::OC>(g + (ic + ii) * T::PITCH + c0, gv);
-        load_cols<T::OC>(q + (ic + ii) * T::PITCH + c0, qv);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < T::OC; ++e) {
-            dv[j][e] = fmaf(lane(p4[j], ii), gv[e], dv[j][e]);
-            dk[j][e] = fmaf(lane(l4[j], ii), qv[e], dk[j][e]);
-          }
-      }
-    }
-    __syncthreads();  // every row of dL^T is written
+    __syncthreads();
     // dL folded into the bins of this pair of tiles' offsets dr = kr - qr,
     // dc = kc - qc; each bin a thread's, its pairs added in a fixed order
     const int qr_lo = qt * T::QR, qr_hi = qr_lo + T::QR;
-    const int dr_lo = kr_lo - (qr_hi - 1), ndr = kr_hi - 1 - qr_lo - dr_lo + 1;
-    for (int sl = tid; sl < ndr * T::L; sl += T::KTHREADS) {
+    const int dr_lo = kr_lo - (qr_hi - 1), ndr = kr_hi - qr_lo - dr_lo + 1;
+    for (int sl = tid; sl < ndr * T::L; sl += NT) {
       const int dr = dr_lo + sl / T::L, dc = sl % T::L - (T::WQ - 1);
-      const int qc_lo = max(0, -dc), qc_hi = min(T::WQ, T::WK - dc);
-      float acc = 0.0f;
-      for (int qr = max(qr_lo, kr_lo - dr); qr < min(qr_hi, kr_hi - dr); ++qr) {
-        const float* d0 = dlt + ((qr + dr - kr_lo) * T::WK + dc) * T::SQ + (qr - qr_lo) * T::WQ;
-        for (int qc = qc_lo; qc < qc_hi; ++qc) acc += d0[qc * (T::SQ + 1)];
+      float sum = 0.0f;
+      for (int qr = max(qr_lo, kr_lo - dr); qr < min(qr_hi, kr_hi + 1 - dr); ++qr) {
+        const int j0 = (qr + dr) * T::WKP + dc;  // the key place of query column 0
+        const int qc_lo = max(max(0, -dc), j_lo - j0);
+        const int qc_hi = min(min(T::WQ, T::WK - dc), j_hi - j0);
+        const float* d0 = lb + (qr - qr_lo) * T::WQ * KT + j0 - j_lo;
+        for (int qc = qc_lo; qc < qc_hi; ++qc) sum += d0[qc * (KT + 1)];
       }
-      bins[(dr + T::WQ - 1) * T::L + dc + T::WQ - 1] += acc;
+      bins[(dr + T::WQ - 1) * T::L + dc + T::WQ - 1] += sum;
     }
+    outer8<QS, KT, KT / 2, T::PITCH, T::DP / 2>(acc, pa, tm + 2 * cur * T::QTM + pbt);
+    __syncthreads();
   }
-  __syncthreads();
+  add_parts<T::KV_TILES, T::KSPLIT>(acc, sm, part, (v_lane ? 0 : T::KV_TILES / 2) +
+                                                       u % (T::KV_TILES / 2));
+  if (part == 0) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int r = row0 + j;
-    if (kreg[r] < 0) continue;
-    float* dst;
-    long long stride_off;
-    if (T::OVERLAP) {
-      dst = a.kvpart + (window * T::NK + kt * T::KT + r) * (2LL * c);
-      stride_off = c;
-    } else {
-      dst = a.dqkv + ktok[r] * (3LL * c) + c;
-      stride_off = c;
+    for (int i = 0; i < 8; ++i) {
+      const int r = at8<KT>(ok, i);
+      if (kreg[r] < 0) continue;
+      const int j = kt * KT + r;  // its key: row j / WKP, column j % WKP
+      float* dst = T::OVERLAP
+                       ? a.kvpart + (window * T::NK + j / T::WKP * T::WK + j % T::WKP) * (2LL * c)
+                       : a.dqkv + ktok[r] * (3LL * c) + c;
+      store8<T>(dst + (v_lane ? c : 0) + head * T::D, og, sh, acc[i], v_lane ? 1.0f : a.scale);
     }
-    store_cols<T::D, T::OC>(dst + head * T::D, c0, sh, dk[j], a.scale);
-    store_cols<T::D, T::OC>(dst + stride_off + head * T::D, c0, sh, dv[j], 1.0f);
   }
-  float* part = a.partial + (window * T::NKT + kt) * (static_cast<long long>(T::NB) * a.heads);
-  for (int sl = tid; sl < T::NB; sl += T::KTHREADS) {
+  float* out = a.partial + (window * T::NKT + kt) * (static_cast<long long>(T::NB) * a.heads);
+  for (int sl = tid; sl < T::NB; sl += NT) {
     const int dr = sl / T::L - (T::WQ - 1), dc = sl % T::L - (T::WQ - 1);
-    part[offset_bin<T>(dr, dc) * a.heads + head] = bins[sl];
+    out[offset_bin<T>(dr, dc) * a.heads + head] = bins[sl];
   }
 }
 
@@ -1373,19 +1579,19 @@ __global__ void __launch_bounds__(256) kv_fold_kernel(const TArgs a, long long t
   *reinterpret_cast<float4*>(a.dqkv + tok * (3LL * c) + c + ch) = acc;
 }
 
-template <int WQ_, int WK_, int D_, int KR_>
+template <int WQ_, int WK_, int D_, int KT_>
 struct Shape {
-  using T = Tiled<WQ_, WK_, D_, KR_>;
+  using T = Tiled<WQ_, WK_, D_, KT_>;
 };
 
 // f(Shape<...>{}) for the instantiated (window, key window, head size), or
 // `none`.
 template <class F>
 int tiled_dispatch(int window, int key_window, int head_dim, int none, F f) {
-  if (window == 16 && key_window == 16 && head_dim == 30) return f(Shape<16, 16, 30, 4>{});
-  if (window == 16 && key_window == 24 && head_dim == 30) return f(Shape<16, 24, 30, 2>{});
-  if (window == 4 && key_window == 6 && head_dim == 6) return f(Shape<4, 6, 6, 8>{});
-  if (window == 8 && key_window == 8 && head_dim == 30) return f(Shape<8, 8, 30, 8>{});
+  if (window == 16 && key_window == 16 && head_dim == 30) return f(Shape<16, 16, 30, 64>{});
+  if (window == 16 && key_window == 24 && head_dim == 30) return f(Shape<16, 24, 30, 64>{});
+  if (window == 4 && key_window == 6 && head_dim == 6) return f(Shape<4, 6, 6, 48>{});
+  if (window == 8 && key_window == 8 && head_dim == 30) return f(Shape<8, 8, 30, 64>{});
   return none;
 }
 
@@ -1395,7 +1601,7 @@ constexpr int kRefused = static_cast<int>(cudaErrorInvalidValue);
 long long tiled_windows(int batch, int hp, int wp, int heads, int window, int key_window,
                         int shift) {
   if (batch < 1 || heads < 1 || heads % 2 || window < 1 || hp < window || wp < window ||
-      hp % window || wp % window || shift < 0 || shift >= window ||
+      hp % window || wp % window || shift < 0 || shift >= window || shift % 4 ||
       (key_window != window && shift != 0)) {
     return 0;
   }
@@ -1445,7 +1651,7 @@ extern "C" int srpde_tiled_attention_forward(const float* qkv, const float* tabl
     using T = typename decltype(shape)::T;
     static unsigned devices = 0;
     return launch_tiled<T>(tiled_attention_forward_kernel<T>, T::kForwardSmem,
-                           windows * heads * T::NQT, T::QTHREADS, a, devices, s);
+                           windows * heads * T::NQT, T::FTHREADS, a, devices, s);
   });
 }
 
@@ -1483,10 +1689,10 @@ extern "C" int srpde_tiled_attention_backward(const float* dout, const float* qk
     using T = typename decltype(shape)::T;
     static unsigned dq_devices = 0, dkv_devices = 0;
     int err = launch_tiled<T>(tiled_attention_dq_kernel<T>, T::kDqSmem, windows * heads * T::NQT,
-                              T::QTHREADS, a, dq_devices, s);
+                              T::BTHREADS, a, dq_devices, s);
     if (err != 0) return err;
     err = launch_tiled<T>(tiled_attention_dkv_kernel<T>, T::kDkvSmem, windows * heads * T::NKT,
-                          T::KTHREADS, a, dkv_devices, s);
+                          T::BTHREADS, a, dkv_devices, s);
     if (err != 0) return err;
     const int outs = T::NB * heads;
     bias_grad_sum_kernel<<<(outs + kSumOuts - 1) / kSumOuts, dim3(kSumOuts, kSumSlices), 0, s>>>(

@@ -36,11 +36,12 @@ and window 4 with heads of 6, the tests' TINY widths: one block a window and
 head) and of :data:`TILED_SHAPES` (window 16 with heads of 30, HAT's window
 attention; windows of 16 with key windows of 24 and heads of 30, its
 overlapping attention; and 4 with 6 and heads of 6, the latter's TINY
-widths: key tiles with an online softmax), an even number of heads, and
-float32: bfloat16 or float16 inputs (the qkv linear's output under
-autocast) are widened to float32 for them and the output is rounded back to
-the input's dtype; any other width or dtype on CUDA raises. On the CPU each
-runs its plain twin (:func:`plain_window_attention`,
+widths: key tiles with an online softmax; a shift a multiple of 4, as
+window / 2 is), an even number of heads, and float32: bfloat16 or float16
+inputs (the qkv linear's output under autocast) are widened to float32 for
+them and the output is rounded back to the input's dtype; any other width or
+dtype on CUDA raises. On the CPU each runs its plain twin
+(:func:`plain_window_attention`,
 :func:`plain_overlapping_window_attention`), the same arithmetic in PyTorch,
 differentiated by autograd.
 

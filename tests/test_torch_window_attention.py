@@ -393,12 +393,14 @@ def _against_twins(kernel, twin, exact, what):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,hp,wp", [(4, 48, 48), (1, 32, 64)], ids=["48x48", "32x64"])
+@pytest.mark.parametrize("b,hp,wp", [(4, 48, 48), (1, 32, 64), (32, 48, 48)],
+                         ids=["48x48", "32x64", "cell-32x48x48"])
 @pytest.mark.parametrize("shifted", [False, True], ids=["plain", "shifted"])
 def test_window_16_kernels_match_the_twin(card, b, hp, wp, shifted):
     """HAT's window attention at its published widths (window 16, heads of
     30) on the tiled kernels: output, qkv and table gradients against the
-    float64 twin, as the pair's (three device launches a backward)."""
+    float64 twin, as the pair's (three device launches a backward); also at
+    the shape ``hat_train_b32`` steps at (32 maps of 48^2)."""
     window, heads, d = HAT_WINDOW
     shift = window // 2 if shifted else 0
     qkv, table = _inputs(window, heads, d, b, hp, wp, torch.float32, card)
@@ -418,12 +420,15 @@ def test_window_16_kernels_match_the_twin(card, b, hp, wp, shifted):
 @pytest.mark.cuda
 @pytest.mark.parametrize("widths,b,hp,wp", [(OVERLAP_PUBLISHED, 4, 48, 48),
                                             (OVERLAP_PUBLISHED, 1, 32, 64),
+                                            (OVERLAP_PUBLISHED, 32, 48, 48),
                                             (OVERLAP_TINY, 3, 40, 40), (OVERLAP_TINY, 2, 4, 8)],
-                         ids=["published-48x48", "published-32x64", "tiny-40x40", "tiny-4x8"])
+                         ids=["published-48x48", "published-32x64", "published-cell-32x48x48",
+                              "tiny-40x40", "tiny-4x8"])
 def test_overlap_kernels_match_the_twin(card, widths, b, hp, wp):
     """HAT's overlapping attention on its kernels against the float64 twin:
     border windows whose keys lie outside the map, tokens in up to four key
-    windows (the dK and dV sums)."""
+    windows (the dK and dV sums); also at the shape ``hat_train_b32`` steps
+    at (32 maps of 48^2)."""
     window, key_window, heads, d = widths
     qkv, table = _overlap_inputs(window, key_window, heads, d, b, hp, wp, torch.float32, card)
     g = torch.randn(b, hp, wp, heads * d, device=card,
