@@ -151,7 +151,16 @@ Phases (any failed check raises, and the script exits non-zero):
    shape timed beside the pair; then a published-width HAT's train step in
    float32 and bfloat16 with its launches counted (36 window-attention and 6
    overlapping calls each way, one token reduction a linear and a
-   LayerNorm).
+   LayerNorm);
+27. Restormer attention -- the transposed-attention kernels
+   (``csrc/transposed_attention.cu``) at ``restormer_serve_scene``'s 640^2
+   level (16 tiles of 160^2), heads of 48 and of 96 channels, against the
+   float32 and float64 twins, bit for bit over two calls, device time, time
+   per call, bound and the plain chain as the yardstick, at every scale's
+   call (1, 2, 4 and 8 heads); then a published-width Restormer's forward
+   there with its device time and peak memory, and a bundle of four
+   Restormer experts through ``ml_cascade`` to 640^2 (eager, captured,
+   replayed) with its launches counted (4 levels of 44 calls of each kernel).
 
 Prints each phase's seconds, a ``{"kernels": [...]}`` line, the
 ``nvidia-smi`` name/power-limit line and, last, ``{"ok": true, "device":
@@ -2109,6 +2118,141 @@ def phase_hat_attention(dev: torch.device, smi: str, b: int = 32) -> dict:
     return out
 
 
+def phase_restormer_attention(dev: torch.device, smi: str, b: int = 16, side: int = 160) -> dict:
+    """Phase 27: Restormer's transposed attention on the three kernels of
+    ``csrc/transposed_attention.cu`` (``transposed_attention_gram_kernel``,
+    ``_softmax_kernel``, ``_apply_kernel``) at every call the served
+    cascade's largest level makes, ``b`` tiles of ``side``^2
+    (``restormer_serve_scene``'s 640^2 level): each scale's (channels,
+    heads, side), heads of 48 channels at every scale and of 96 at the first
+    scale's decoder and refinement. Each against the float32 and float64
+    twins (at most twice the float32 twin's error), bit for bit over two
+    calls, the device time of each kernel and of the three (profiler), time
+    per call (CUDA events), the bound (q, k, v read and the output written:
+    16 C N bytes; q k^T and A v: 4 C d N operations) and, as the yardstick,
+    the plain twin's time per call and device time (the chain the kernels
+    replace: two ``F.normalize``, ``q k^T``, the scale, the softmax, ``A v``
+    and the copies between). Then a published-width Restormer's forward on
+    the ``b`` tiles under ``no_grad``: the kernels' device time in it and
+    the peak memory. Last, a bundle of four published-width Restormer
+    experts served through ``ml_cascade`` from 40^2 to 640^2 three times
+    (eager, captured, replayed), the launch counts zeroed just before each
+    call: one call of each kernel a block a level (4 levels of 44 blocks)."""
+    from superresolution_for_pdes_tpu_torch.cascade import graphs
+    from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
+    from superresolution_for_pdes_tpu_torch.deploy import load_bundle, save_bundle
+    from superresolution_for_pdes_tpu_torch.models import Restormer
+    from superresolution_for_pdes_tpu_torch.ops import transposed_attention as ta
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    out = {"max_rel_err": 0.0}
+
+    def rel(x, y):
+        return float((x.double() - y).abs().max() / y.abs().max())
+
+    # (channels, heads, side) of each scale's blocks at the level
+    calls = [(48, 1, side), (96, 1, side), (96, 2, side // 2), (192, 4, side // 4),
+             (384, 8, side // 8)]
+    for c, heads, s in calls:
+        d, tokens = c // heads, s * s
+        label = f"{heads} heads of {d} at {s}^2"
+        qkv = torch.randn(b, 3 * c, s, s, device=dev, generator=gen)
+        t = 0.5 + torch.rand(heads, 1, 1, device=dev, generator=gen)
+        with torch.no_grad():
+            got = ta.transposed_attention(qkv, t, heads)
+            again = ta.transposed_attention(qkv, t, heads)
+            twin = ta.plain_transposed_attention(qkv, t, heads)
+            exact = ta.plain_transposed_attention(qkv.double(), t.double(), heads)
+        err, twin_err = rel(got, exact), rel(twin, exact)
+        out["max_rel_err"] = max(out["max_rel_err"], err)
+        check(err <= max(2 * twin_err, 1e-6), f"{label}: kernels {err:.3e}, twin "
+                                                f"{twin_err:.3e} of max from the float64 twin")
+        check(torch.equal(got, again), f"{label}: two calls differ")
+        del exact, twin, got, again
+
+        def kernels():
+            with torch.no_grad():
+                return ta.transposed_attention(qkv, t, heads)
+
+        def plain():
+            with torch.no_grad():
+                return ta.plain_transposed_attention(qkv, t, heads)
+
+        _, busy, rows = profile(kernels, reps=20)
+        _, plain_busy, _ = profile(plain, reps=20)
+        bound_ms, bound_by = bound(16.0 * c * tokens * b, 4.0 * c * d * tokens * b)
+        entry = {"shape": [b, 3 * c, s, s], "heads": heads, "max_rel_err": err,
+                 "twin_rel_err": twin_err, "device_ms": busy, "ms": time_ms(kernels, 20),
+                 "by_kernel_ms": {name: ms for name, ms, _ in rows},
+                 "plain_ms": time_ms(plain, 20), "plain_device_ms": plain_busy,
+                 "bound": (bound_ms, bound_by)}
+        entry["roofline_pct"] = 100.0 * bound_ms / busy
+        out[label] = entry
+        if heads == 1:
+            out[f"heads of {d}"] = entry
+        log(f"[restormer attention] {label} at batch {b}: kernels {err:.3e}, twin "
+            f"{twin_err:.3e} of max from float64; device {busy:.4f} ms ({entry['ms']:.4f} ms "
+            f"per call) = {entry['roofline_pct']:.1f}% of the bound {bound_ms:.4f} ms "
+            f"({bound_by}); by kernel {entry['by_kernel_ms']}; the plain chain "
+            f"{entry['plain_ms']:.4f} ms per call, {plain_busy:.4f} on the device; on {smi}")
+        del qkv
+        torch.cuda.empty_cache()
+
+    model = Restormer(in_channels=5, generator=torch.Generator().manual_seed(27)).to(dev).eval()
+    x = torch.randn(b, 5, side, side, device=dev, generator=gen)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def forward():
+        with torch.no_grad():
+            return model(x)
+
+    forward()
+    torch.cuda.synchronize()
+    out["forward_peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    _, busy, rows = profile(forward, reps=3)
+    out["forward_device_ms"] = busy
+    out["in_forward_device_ms"] = sum(r[1] for r in rows if "transposed_attention" in r[0])
+    log(f"[restormer attention] a published-width forward at ({b}, {side}^2): device "
+        f"{busy:.3f} ms, the kernels {out['in_forward_device_ms']:.3f} ms of it, peak "
+        f"{out['forward_peak_bytes']} bytes; on {smi}")
+    del model, x
+    torch.cuda.empty_cache()
+
+    res = (80, 160, 320, 640)
+    scene = {"u": {40: torch.randn(40, 40, device=dev, generator=gen)},
+             "f": {r: torch.randn(r, r, device=dev, generator=gen) for r in res},
+             "theta": {r: 0.5 + torch.rand(r, r, device=dev, generator=gen) for r in res}}
+    experts = [Restormer(in_channels=5, generator=torch.Generator().manual_seed(i)).state_dict()
+               for i in range(len(res))]
+    with tempfile.TemporaryDirectory() as tmp:
+        save_bundle(Path(tmp) / "restormer", {"name": "restormer", "in_channels": 5}, experts,
+                    stats_mode="tile", coarse_tile=(40, 80, 80))
+        served, variables, _, loaded = load_bundle(Path(tmp) / "restormer", device=dev)
+    want = {"kernel_gram": 44 * len(res), "kernel_softmax": 44 * len(res),
+            "kernel_apply": 44 * len(res)}
+    graphs.LEVEL_GRAPHS.clear()
+    out["cascade_launches"] = []
+    for call in ("eager", "captured", "replayed"):
+        ta.reset_launch_counts()
+        ml_cascade(served, variables, scene, 640, stats_mode="tile",
+                   coarse_tile=loaded["coarse_tile"])
+        torch.cuda.synchronize()
+        counts = ta.launch_counts()
+        out["cascade_launches"].append(counts)
+        check(counts == want, f"a Restormer bundle's cascade to 640^2 ({call}): one call of "
+                              f"each kernel a block a level ({want}), got {counts}")
+    out["level_graphs"] = (graphs.LEVEL_GRAPHS.captures, graphs.LEVEL_GRAPHS.replays)
+    check(out["level_graphs"] == (len(res), len(res)),
+          f"a Restormer bundle's cascade: each level captured once and replayed once, got "
+          f"(captures, replays) {out['level_graphs']}")
+    graphs.LEVEL_GRAPHS.clear()
+    out["launches"] = out["cascade_launches"][-1]
+    log(f"[restormer attention] a Restormer bundle's cascade 40^2 -> 640^2: launches "
+        f"eager, captured, replayed {out['cascade_launches']}, (captures, replays) "
+        f"{out['level_graphs']}; on {smi}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -2560,6 +2704,8 @@ def main() -> None:
     lap("25 window attention")
     hat_attention = phase_hat_attention(dev, smi)
     lap("26 HAT attention")
+    restormer_attention = phase_restormer_attention(dev, smi)
+    lap("27 Restormer attention")
 
     t40 = loss_timing[(32, 40, 40)]
     timing = {"K1": dict(solved["k1_timing"],
@@ -2694,11 +2840,26 @@ def main() -> None:
             "device_ms": t["device_ms"], "forward_device_ms": t["forward_device_ms"],
             "backward_device_ms": t["backward_device_ms"], "shape": t["shape"]})
     rows[-2]["tiled_vs_pair_window_8"] = hat_attention["tiled_vs_pair_window_8"]
+    t = restormer_attention["heads of 96"]
+    rows.append({
+        "name": "transposed attention kernel_gram + kernel_softmax + kernel_apply",
+        "route": "cuda", "source": "superresolution_for_pdes_tpu_torch/csrc/transposed_attention.cu",
+        "replaces": "no TPU kernel (no JAX Restormer): the port's plain twin "
+                    "plain_transposed_attention (F.normalize, q k^T, softmax, A v)",
+        "launches": restormer_attention["launches"],
+        "path": "a Restormer bundle's replayed cascade 40^2 -> 640^2 (phase 27): one call of "
+                "each kernel a block a level",
+        "in_forward_device_ms": restormer_attention["in_forward_device_ms"],
+        "max_rel_err": restormer_attention["max_rel_err"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+        "library_ms": None, "device_ms": t["device_ms"], "shape": t["shape"],
+        "heads_of_48": restormer_attention["heads of 48"]})
     log(f"[summary] rebuild {rebuilt['stages']}; single-level {single}")
     log(f"[summary] resnet {resnet['summary']}; router harnesses {routed['summary']}")
     log(f"[summary] r7bf16 {bf16['summary']}; fused {fused_run}; dp {dp_run}")
     log(f"[summary] online {online_run}; shard {shard_run}; trace {trace_run}; native "
-        f"{native_run}; window attention {attention}; HAT attention {hat_attention}")
+        f"{native_run}; window attention {attention}; HAT attention {hat_attention}; "
+        f"Restormer attention {restormer_attention}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

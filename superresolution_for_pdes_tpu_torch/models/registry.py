@@ -6,6 +6,7 @@ from typing import Any, Callable, Dict
 
 from superresolution_for_pdes_tpu_torch.models.hat import HAT
 from superresolution_for_pdes_tpu_torch.models.resnet import PDEResNet
+from superresolution_for_pdes_tpu_torch.models.restormer import Restormer
 from superresolution_for_pdes_tpu_torch.models.swinir import SwinIR
 from superresolution_for_pdes_tpu_torch.models.unet import AttentionUNet
 
@@ -38,6 +39,7 @@ _REGISTRY: Dict[str, Callable[..., Any]] = {
     "resnet": PDEResNet,
     "swinir": _layer_normed("swinir", SwinIR),
     "hat": _layer_normed("hat", HAT),
+    "restormer": _layer_normed("restormer", Restormer),
 }
 
 

@@ -2,7 +2,8 @@
 as CUDA graphs, and the cache's bookkeeping. On the CPU no level is ever
 captured; the cache's sightings, cascades and eviction are held here with a
 stand-in for the capture, and the capture itself on the card
-(``tests/test_torch_cuda.py``; SwinIR's and HAT's levels here, marked ``cuda``). Also
+(``tests/test_torch_cuda.py``; SwinIR's, HAT's and Restormer's levels here, marked
+``cuda``). Also
 every cascade setting reaching a level's key, the modal correction's band
 index kept on the device, and the kernels' launch tally a replay advances."""
 
@@ -14,8 +15,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from superresolution_for_pdes_tpu_torch.cascade import graphs, modal
 from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
-from superresolution_for_pdes_tpu_torch.models import HAT, AttentionUNet, SwinIR
+from superresolution_for_pdes_tpu_torch.models import HAT, AttentionUNet, Restormer, SwinIR
 from superresolution_for_pdes_tpu_torch.ops import stencil_kernels as sk
+from superresolution_for_pdes_tpu_torch.ops import transposed_attention as ta
 from superresolution_for_pdes_tpu_torch.ops import window_attention as wa
 from superresolution_for_pdes_tpu_torch.ops._build import add_launches, count_launch, launch_tally
 from superresolution_for_pdes_tpu_torch.utils.profiling import clear_spans, recorded_spans
@@ -252,3 +254,14 @@ def test_hat_levels_replay_bit_for_bit(level_graphs):
     wa.reset_launch_counts()
     _levels_replay_bit_for_bit(HAT, level_graphs)
     assert wa.overlap_launch_counts()["overlap_kernel_forward"] == 3 * 3 * 6
+
+
+@pytest.mark.cuda
+def test_restormer_levels_replay_bit_for_bit(level_graphs):
+    """On a card, Restormer (published widths): its transposed-attention
+    kernels and their scratch inside the graphs; each level call, eager or
+    replayed, counts one call of each kernel a block (44)."""
+    ta.reset_launch_counts()
+    _levels_replay_bit_for_bit(Restormer, level_graphs)
+    assert ta.launch_counts() == {"kernel_gram": 3 * 3 * 44, "kernel_softmax": 3 * 3 * 44,
+                                  "kernel_apply": 3 * 3 * 44}

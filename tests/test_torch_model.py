@@ -129,7 +129,7 @@ def test_registry():
     wide = build_model("attention_unet_wide", enc_features=(16, 32, 64))
     assert wide.bridge[0].out_channels == 768
     assert available_models() == ("attention_unet", "attention_unet_wide", "resnet", "swinir",
-                                  "hat")
+                                  "hat", "restormer")
     resnet = build_model("resnet", features=16, num_blocks=2)
     assert isinstance(resnet, PDEResNet) and resnet.block2.conv1.out_channels == 16
     with pytest.raises(ValueError, match="unknown model"):

@@ -18,6 +18,7 @@ from superresolution_for_pdes_tpu_torch.cascade.upscale import ml_cascade
 from superresolution_for_pdes_tpu_torch.data.normalization import NormStats
 from superresolution_for_pdes_tpu_torch.models import AttentionUNet
 from superresolution_for_pdes_tpu_torch.models.resnet import PDEResNet
+from superresolution_for_pdes_tpu_torch.models.restormer import Restormer
 from superresolution_for_pdes_tpu_torch.models.hat import HAT
 from superresolution_for_pdes_tpu_torch.models.swinir import SwinIR
 from superresolution_for_pdes_tpu_torch.train import TrainConfig, loop
@@ -32,7 +33,8 @@ SPAN_NAMES = ("cascade", "cascade.level", "cascade.inputs", "cascade.model", "ca
               "cascade.refine", "cascade.modal", "cascade.replay", "multigrid.vcycle",
               "train.step", "train.forward", "physics.loss", "train.backward", "train.clip",
               "train.optimizer", "swinir.stage", "swinir.attention", "swinir.attention.kernel",
-              "hat.cab", "hat.ocab", "hat.ocab.kernel")
+              "hat.cab", "hat.ocab", "hat.ocab.kernel", "restormer.attention", "restormer.ffn",
+              "restormer.attention.kernel")
 
 
 def _opened_in_source():
@@ -150,6 +152,23 @@ def test_hat_records_its_blocks_spans():
     assert [inside(s, "hat.ocab") for s in stages] == [[3 * 16 * 2]] * 2
     names = {r.name for r in records}
     assert not names & {"swinir.attention.kernel", "hat.ocab.kernel"}
+
+
+def test_restormer_records_its_blocks_spans():
+    """Under a profiler, a TINY Restormer forward and backward on the CPU
+    opens per block ``restormer.attention`` (``n``: samples times heads) and
+    ``restormer.ffn`` (``n``: tokens at the block's scale), on the map padded
+    to a multiple of 8; the twin opens no kernel span."""
+    model = Restormer(in_channels=5, dim=8, num_blocks=(1, 1, 1, 2), num_refinement_blocks=1,
+                      heads=(2, 2, 4, 4), generator=torch.Generator().manual_seed(8))
+    x = torch.randn(3, 5, 14, 16, generator=torch.Generator().manual_seed(9))
+    records, _ = _profiled(lambda: model(x).sum().backward())
+    # blocks in forward order: encoders 1-3, latent (2), decoders 3-1, refinement
+    heads = [2, 2, 4, 4, 4, 4, 2, 2, 2]
+    sides = [16, 8, 4, 2, 2, 4, 8, 16, 16]
+    assert [r.n for r in records if r.name == "restormer.attention"] == [3 * h for h in heads]
+    assert [r.n for r in records if r.name == "restormer.ffn"] == [3 * s * s for s in sides]
+    assert "restormer.attention.kernel" not in {r.name for r in records}
 
 
 def test_cascade_records_its_span_tree():
